@@ -9,13 +9,18 @@ The JAX package ``ava256_tpu`` stays the reference; this package mirrors its
 layout and never imports it:
 
 - ``ops``     — weight-normalized layers, grid sampling, geometry maps, ray
-  generation, the PyTorch raymarch oracle and the CUDA raymarcher
-  (``csrc/mvp_march_fwd.cu``, built at first use);
+  generation, the PyTorch raymarch oracle and the differentiable CUDA
+  raymarcher (``csrc/mvp_march_fwd.cu``, ``csrc/mvp_march_bwd.cu``, built at
+  first use);
 - ``models``  — encoders, VAE bottleneck, decoders, assembler, color
   calibration, background model, full autoencoder;
-- ``data``    — the synthetic dataset and topology;
-- ``factory`` / ``convert`` / ``render`` — model construction, flax weight
-  conversion and frame decoding.
+- ``data``    — the synthetic dataset and topology, device-resident
+  conditioning tables;
+- ``train``   — losses, optimizer and checkpoints, the train step, the loop
+  (``python -m ava256_tpu_torch.train.loop``);
+- ``factory`` / ``convert`` / ``render`` / ``flagship`` — model construction,
+  flax weight and train-state conversion, frame decoding, the flagship
+  configuration's numbers.
 """
 
 __version__ = "0.1.0"

@@ -16,6 +16,12 @@ buffer of the same path. Layouts change by the owning module's type:
 - transposed convs: the JAX kernel is a correlation over the stride-dilated
   input, so it is flipped in both spatial axes and becomes [in, out, kh, kw];
 - dense layers: [in, out] -> [out, in].
+
+``load_train_state`` carries a whole JAX ``TrainState.as_dict()`` across:
+parameters, the ``adaptwarps`` statistic, the optimizer's moments (optax's
+Adam ``mu`` / ``nu`` / ``count``, or SGD's ``trace``) in the same layouts,
+and the step. Reading an Orbax checkpoint into such a tree is the caller's
+job, with the JAX package: this module imports neither.
 """
 
 from __future__ import annotations
@@ -82,3 +88,53 @@ def load_flax(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
     """Load a flax tree into ``model`` in place (on the model's device)."""
     model.load_state_dict(flax_to_state_dict(tree, model))
     return model
+
+
+def _find_opt_state(opt_state: Any, fields) -> Any:
+    """The element of an optax chain state (nested tuples of namedtuples, or
+    mappings) that holds ``fields``."""
+    def get(node, f):
+        return node.get(f) if isinstance(node, Mapping) else getattr(node, f, None)
+
+    if all(get(opt_state, f) is not None for f in fields):
+        return {f: get(opt_state, f) for f in fields}
+    children = (opt_state.values() if isinstance(opt_state, Mapping)
+                else opt_state if isinstance(opt_state, (tuple, list)) else ())
+    for child in children:
+        found = _find_opt_state(child, fields)
+        if found is not None:
+            return found
+    return None
+
+
+def load_train_state(state, tree: Mapping[str, Any]):
+    """Load a JAX ``TrainState.as_dict()`` (numpy leaves: ``params``,
+    ``stats``, ``opt_state``, ``step``) into the port's
+    ``train.state.TrainState`` in place: model, optimizer moments and step."""
+    model, core = state.model, state.optimizer.core
+    load_flax(model, {"params": tree["params"], "stats": tree.get("stats", {})})
+    names = {id(p): n for n, p in model.named_parameters()}
+
+    def moments(params_like):
+        sd = flax_to_state_dict({"params": params_like, "stats": tree.get("stats", {})}, model)
+        return {n: sd[n] for n in names.values()}
+
+    adam = _find_opt_state(tree["opt_state"], ("mu", "nu", "count"))
+    trace = _find_opt_state(tree["opt_state"], ("trace",))
+    if isinstance(core, (torch.optim.Adam, torch.optim.AdamW)):
+        if adam is None:
+            raise KeyError("no Adam state (mu, nu, count) in the optax tree")
+        mu, nu = moments(adam["mu"]), moments(adam["nu"])
+        count = float(np.asarray(adam["count"]))
+        for p in state.optimizer.params:
+            n = names[id(p)]
+            core.state[p] = {"step": torch.tensor(count),
+                             "exp_avg": mu[n].to(p.device), "exp_avg_sq": nu[n].to(p.device)}
+    else:
+        if trace is None:
+            raise KeyError("no momentum trace in the optax tree")
+        tr = moments(trace["trace"])
+        for p in state.optimizer.params:
+            core.state[p] = {"momentum_buffer": tr[names[id(p)]].to(p.device)}
+    state.step = int(np.asarray(tree["step"]))
+    return state

@@ -192,6 +192,31 @@ class SyntheticDataset:
             "neut_verts": self._norm_neut_verts[ident],
         }
 
+    def conditioning_tables(self) -> Dict[str, Dict[str, np.ndarray]]:
+        """Device-cacheable batch fields (see data/cond_cache.py): the
+        per-frame average texture equals the neutral identity texture here,
+        so every conditioning input is a per-identity or per-camera constant
+        and the per-step payload reduces to image + verts + indices."""
+        id_tex = np.stack(self._norm_tex)
+        return {
+            "id": {
+                "avgtex": id_tex,
+                "neut_avgtex": id_tex,
+                "neut_verts": np.stack(self._norm_neut_verts),
+            },
+            "cam": {
+                "camrot": np.stack([c["camrot"] for c in self.cameras]),
+                "campos": np.stack([c["campos"] for c in self.cameras]),
+                "focal": np.tile(np.full((1, 2), self._focal, np.float32), (self.ncams, 1)),
+                "princpt": np.tile(np.array([[self.width / 2, self.height / 2]], np.float32),
+                                   (self.ncams, 1)),
+            },
+            "const": {
+                "modelmatrix": np.eye(4, dtype=np.float32),
+                "pixelcoords": self._pixelcoords,
+            },
+        }
+
     def __len__(self) -> int:
         return self.nident * self.ncams * self.nframes
 

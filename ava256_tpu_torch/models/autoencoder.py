@@ -23,6 +23,7 @@ from ava256_tpu_torch.models.encoders.expression import ExpressionEncoder
 from ava256_tpu_torch.models.encoders.identity import IdentityEncoder
 from ava256_tpu_torch.models.raymarcher import Raymarcher
 from ava256_tpu_torch.ops.grid_sample import resize_bilinear
+from ava256_tpu_torch.ops.layers import remat
 from ava256_tpu_torch.ops.raydirs import compute_raydirs
 
 
@@ -159,7 +160,7 @@ class Autoencoder(nn.Module):
             rayrgb = self.colorcal(rayrgb, camindex, idindex)
         if bg is None and (self.bgmodel is not None and camindex is not None
                            and idindex is not None):
-            bg = self.bgmodel(camindex, idindex, samplecoords)
+            bg = remat(self.bgmodel, camindex, idindex, samplecoords)
         if bg is not None:
             rayrgb = rayrgb + (1.0 - rayalpha) * bg
 

@@ -8,9 +8,8 @@ per-identity embeddings plus a sin/cos encoding of screen coordinates
 through a 1x1-conv MLP.
 
 The JAX factory wraps this module in ``nn.remat`` so its full-resolution
-256-channel activations are recomputed in the backward pass. Rendering keeps
-no activations, so the port has no such wrapper yet; the training port should
-add ``torch.utils.checkpoint`` here.
+256-channel activations are recomputed in the backward pass; here the
+autoencoder calls it through ``ops.layers.remat``.
 """
 
 from __future__ import annotations

@@ -30,6 +30,7 @@ from torch import nn
 from ava256_tpu_torch.models.decoders.geometry import GeometryDecoder
 from ava256_tpu_torch.models.decoders.rgb import RGBDecoder
 from ava256_tpu_torch.ops.geomap import generate_geomap
+from ava256_tpu_torch.ops.layers import remat
 from ava256_tpu_torch.ops.math3d import rodrigues
 
 _PRIMSCALE_TABLE = {1: 2.0, 8: 4.0, 64: 8.0, 256: 12.0, 512: 16.0, 4096: 32.0,
@@ -82,8 +83,10 @@ class DecoderAssembler(nn.Module):
         K, s, nh = self.nprims, self.stride, self.nh
         c = s // 2
 
-        opacity, geo, pos_resid, rvec_resid, scale_resid = self.geodec(
-            expr_encoding, id_cond["z_geo"], id_cond["b_geo"])
+        # the decoder towers are recomputed in the backward pass; the
+        # adaptwarps update below is outside them and runs once
+        opacity, geo, pos_resid, rvec_resid, scale_resid = remat(
+            self.geodec, expr_encoding, id_cond["z_geo"], id_cond["b_geo"])
         geo = geo * self.vertstd + self.vertmean
         predicted_geo = geo
         if gt_geo is not None:
@@ -128,7 +131,8 @@ class DecoderAssembler(nn.Module):
         primscale = primscale * (scale_resid * rw + (1.0 - rw))
 
         viewdirs = viewpos / torch.sqrt(torch.sum(viewpos**2, dim=1, keepdim=True))
-        primrgb = self.rgbdec(expr_encoding, id_cond["z_tex"], id_cond["b_tex"], viewdirs)
+        primrgb = remat(self.rgbdec, expr_encoding, id_cond["z_tex"], id_cond["b_tex"],
+                        viewdirs)
         template = torch.cat([torch.relu(primrgb * 25.0 + 100.0), torch.relu(opacity)], dim=-1)
         return {"verts": predicted_geo, "template": template, "primpos": primpos,
                 "primrot": primrot, "primscale": primscale}

@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from ava256_tpu_torch.ops.geomap import generate_geomap
-from ava256_tpu_torch.ops.layers import ConvSeq, nchw_to_nhwc, nhwc_to_nchw
+from ava256_tpu_torch.ops.layers import ConvSeq, nchw_to_nhwc, nhwc_to_nchw, remat
 
 
 def _conv(features: int, k: int = 4, s: int = 2, p: int = 1) -> dict:
@@ -60,6 +60,7 @@ class ExpressionEncoder(nn.Module):
         """verts/neut_verts [N, V, 3]; avgtex/neut_avgtex [N, M, M, 3] ->
         [N, 4, 4, 64]."""
         geo_img = generate_geomap(verts - neut_verts, self.uv_tidx, self.uv_bary)
-        tex = self.tex(nhwc_to_nchw(avgtex - neut_avgtex))
-        geo = self.geo(nhwc_to_nchw(geo_img))
-        return nchw_to_nhwc(self.comb(torch.cat([tex, geo], dim=1)))
+        # each conv stack is recomputed in the backward pass
+        tex = remat(self.tex, nhwc_to_nchw(avgtex - neut_avgtex))
+        geo = remat(self.geo, nhwc_to_nchw(geo_img))
+        return nchw_to_nhwc(remat(self.comb, torch.cat([tex, geo], dim=1)))

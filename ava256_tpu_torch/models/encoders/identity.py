@@ -21,7 +21,7 @@ from torch import nn
 from ava256_tpu_torch.ops.geomap import generate_geomap
 from ava256_tpu_torch.ops.grid_sample import grid_sample_2d, resize_bilinear
 from ava256_tpu_torch.ops.layers import (
-    LEAKY_GAIN, Conv2dWN, leaky_relu, nchw_to_nhwc, nhwc_to_nchw)
+    LEAKY_GAIN, Conv2dWN, leaky_relu, nchw_to_nhwc, nhwc_to_nchw, remat)
 
 _ESIZE = [3, 16, 32, 64, 64, 128, 128, 256, 256]
 _BSIZE = [3, 16, 32, 64, 64, 128, 128, 256, 256]
@@ -104,18 +104,24 @@ class IdentityEncoder(nn.Module):
         """neut_verts [N, V, 3], neut_avgtex [N, M, M, 3] -> {"z_geo", "z_tex":
         [N, 4, 4, 16], "b_geo", "b_tex": NHWC bias pyramids, deepest first}."""
         geo_img = generate_geomap(neut_verts, self.uv_tidx, self.uv_bary)
-        z_geo, b_geo = self.geo(nhwc_to_nchw(geo_img))
-        z_tex, b_tex = self.tex(nhwc_to_nchw(neut_avgtex))
+        # the UNets and the warp sampling are recomputed in the backward pass
+        z_geo, b_geo = remat(self.geo, nhwc_to_nchw(geo_img))
+        z_tex, b_tex = remat(self.tex, nhwc_to_nchw(neut_avgtex))
         b_geo, b_tex = self.comb(b_geo, b_tex)
 
         # learned warp: identity grid + trainable bias (scaled by 1/wsize),
         # one field shared by every batch item and both pyramids
         warp = self.identity_grid + self.warp_bias / self.wsize
         n = neut_verts.shape[0]
-        out_geo, out_tex = [], []
-        for g, t in zip(b_geo, b_tex):
-            grid = resize_bilinear(warp, g.shape[2:]).expand(n, -1, -1, -1)
-            out_geo.append(grid_sample_2d(nchw_to_nhwc(g), grid, align_corners=False))
-            out_tex.append(grid_sample_2d(nchw_to_nhwc(t), grid, align_corners=False))
+
+        def apply_warp(warp, *levels):
+            out = []
+            for x in levels:
+                grid = resize_bilinear(warp, x.shape[2:]).expand(n, -1, -1, -1)
+                out.append(grid_sample_2d(nchw_to_nhwc(x), grid, align_corners=False))
+            return out
+
+        out = remat(apply_warp, warp, *b_geo, *b_tex)
+        out_geo, out_tex = out[: len(b_geo)], out[len(b_geo):]
         return {"z_geo": nchw_to_nhwc(z_geo), "z_tex": nchw_to_nhwc(z_tex),
                 "b_geo": out_geo, "b_tex": out_tex}

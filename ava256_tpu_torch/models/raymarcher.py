@@ -9,8 +9,12 @@ size is ``dt / volradius`` and the output is split into rgb and alpha.
 Backends:
 - "reference": the PyTorch oracle (``ops.raymarch_ref``), O(K) per step,
   for tests and tiny scenes;
-- "cuda": ``ops.raymarch_cuda`` — the hand-written kernel on CUDA tensors,
-  its plain PyTorch version on CPU tensors.
+- "cuda": ``ops.raymarch_cuda`` — the hand-written kernels on CUDA tensors,
+  their plain PyTorch versions on CPU tensors.
+
+Both are differentiable in the decoder's outputs (primpos, primrot,
+primscale, template, warp): the oracle by plain autograd, the "cuda" backend
+through its backward kernel.
 """
 
 from __future__ import annotations
@@ -46,11 +50,6 @@ class Raymarcher:
                 *args, fadescale=self.fadescale, fadeexp=self.fadeexp,
                 max_steps=self.options.get("max_steps", 1024))
         else:
-            if torch.is_grad_enabled() and any(
-                    isinstance(x, torch.Tensor) and x.requires_grad for x in args):
-                raise NotImplementedError(
-                    "the cuda backend has no backward yet; run the forward under "
-                    "torch.no_grad() or torch.inference_mode()")
             rayrgba = mvp_raymarch_cuda(
                 *args, prim_mask=decout.get("prim_mask"), fadescale=self.fadescale,
                 fadeexp=self.fadeexp, device=raypos.device, **self.options)

@@ -7,7 +7,8 @@
 
 Each ``csrc/*.cu`` file has a plain C interface. At first use it is compiled
 with ``nvcc`` for ``sm_90a`` into ``ava256_tpu_torch/_build/`` (named by the
-source's hash, so an edited source rebuilds) and loaded with ``ctypes``.
+hash of the source and the shared ``csrc/*.cuh`` headers, so an edited source
+rebuilds) and loaded with ``ctypes``.
 Nothing here runs at import time.
 """
 
@@ -54,6 +55,8 @@ class CudaLib:
     @property
     def path(self) -> Path:
         digest = hashlib.sha1(self.source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+        for header in sorted(CSRC.glob("*.cuh")):  # shared device code
+            digest.update(header.read_bytes())
         return BUILD_DIR / f"lib{self.source.stem}_{digest.hexdigest()[:12]}.so"
 
     def _tmp(self) -> Path:

@@ -26,10 +26,25 @@ from typing import Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 # torch.nn.init.calculate_gain("leaky_relu", 0.2)
 LEAKY_GAIN = math.sqrt(2.0 / (1.0 + 0.2 * 0.2))
+
+
+REMAT = True  # switch for the tests: False keeps every activation
+
+
+def remat(fn, *args):
+    """Activation checkpointing where the JAX package uses ``nn.remat`` or
+    ``jax.checkpoint``: ``fn``'s activations are dropped after the forward and
+    recomputed in the backward. Active only while gradients are recorded;
+    values and gradients are the same with and without."""
+    if REMAT and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                                 preserve_rng_state=False)
+    return fn(*args)
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:

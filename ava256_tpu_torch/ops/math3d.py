@@ -5,7 +5,7 @@
 # LICENSE file in the root directory of this source tree.
 """Small 3D math ops, as in ``ava256_tpu.ops.math3d``: Rodrigues vectors to
 matrices (with the 1e-5 epsilon under the square root that keeps the zero
-vector differentiable) and vector normalization."""
+vector differentiable), quaternions to matrices and vector normalization."""
 
 from __future__ import annotations
 
@@ -42,3 +42,25 @@ def rodrigues(rvec: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return mat.reshape(rvec.shape[:-1] + (3, 3))
+
+
+def quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Quaternions [..., 4] (x, y, z, w) -> rotation matrices [..., 3, 3]."""
+    theta = torch.sqrt(1e-5 + torch.sum(q**2, dim=-1))
+    q = q / theta[..., None]
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    mat = torch.stack(
+        [
+            1.0 - 2.0 * y * y - 2.0 * z * z,
+            2.0 * (x * y - z * w),
+            2.0 * (x * z + y * w),
+            2.0 * (x * y + z * w),
+            1.0 - 2.0 * x * x - 2.0 * z * z,
+            2.0 * (y * z - x * w),
+            2.0 * (x * z - y * w),
+            2.0 * (x * w + y * z),
+            1.0 - 2.0 * x * x - 2.0 * y * y,
+        ],
+        dim=-1,
+    )
+    return mat.reshape(q.shape[:-1] + (3, 3))

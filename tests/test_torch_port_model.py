@@ -8,7 +8,7 @@ the CPU, with the JAX weights converted by ``ava256_tpu_torch.convert``.
 
 One reduced model of ``__graft_entry__._build`` serves every test: 64^2
 textures, 256 primitives (the adaptive-scale branch, as the flagship's
-16384), 32x32 rays, tile 8, max_hit 16, nbuf 32. Primitives are 16^3: the
+16384), 32x32 rays, tile 8, max_hit 16, 64 step rows of 16 / 256. Primitives are 16^3: the
 decoder towers need sqrt(nprims) * primsize in {256, 512, 1024}. Its
 random init is perturbed with seeded numpy noise first, so that zero biases
 and unit colour gains are not what the comparison rests on.
@@ -38,7 +38,9 @@ from ava256_tpu_torch.factory import get_autoencoder
 from ava256_tpu_torch.models.bottleneck import kl_loss_stable
 from ava256_tpu_torch.render import decode
 
-OPTS = {"tile": 8, "max_hit": 16, "nbuf": 32}
+# dt 16 / volradius 256 with 64 rows spans 4 units: past the cube's diagonal,
+# so the march reaches the head (at dt 1 and 32 rows it would end in front)
+OPTS = {"tile": 8, "max_hit": 16, "nbuf": 64, "dt": 16.0}
 SIZES = dict(texsize=64, nprims=256, height=32, width=32, batch=2, nident=2, ncams=2,
              primsize=16)
 
@@ -269,10 +271,17 @@ def test_port_imports_without_jax():
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
         "sys.modules['ava256_tpu'] = None\n"
+        "sys.modules['optax'] = None\n"
+        "sys.modules['orbax'] = None\n"
         "import ava256_tpu_torch, ava256_tpu_torch.ops, ava256_tpu_torch.models\n"
         "import ava256_tpu_torch.factory, ava256_tpu_torch.convert, ava256_tpu_torch.render\n"
         "import ava256_tpu_torch.data, ava256_tpu_torch.ops.cuda_lib\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'ava256_tpu')\n"
+        "import ava256_tpu_torch.data.cond_cache, ava256_tpu_torch.flagship\n"
+        "import ava256_tpu_torch.train.losses, ava256_tpu_torch.train.state\n"
+        "import ava256_tpu_torch.train.step, ava256_tpu_torch.train.loop\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'ava256_tpu')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
     )
