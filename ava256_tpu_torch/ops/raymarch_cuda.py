@@ -19,14 +19,18 @@ Port of ``ava256_tpu.ops.raymarch_pallas``:
    saturation (summed-within-step). On a CUDA tensor this launches the
    kernel; on a CPU tensor it runs the plain PyTorch version,
    ``march_tiles_plain``, which repeats the kernel's arithmetic.
+   When asked, the march also returns each ray's saturation state
+   [NT, 5, T2]: the row sums (rgb, a) of the step row where the density sum
+   crosses 1 (zeros if it never does) and the final alpha.
 3. Its backward (``march_tiles_bwd``): from the cotangent of the composited
-   tiles, the gradients of the template and warp boxes and of every
-   primitive's affine, summed over the tiles. Kernel on CUDA tensors,
-   ``march_tiles_bwd_plain`` on CPU tensors.
+   tiles and the forward's saturation state, the gradients of the template
+   and warp boxes and of every primitive's affine, summed over the tiles.
+   Kernel on CUDA tensors, ``march_tiles_bwd_plain`` on CPU tensors. Without
+   a state it runs the forward march once more to get it.
 4. The op (``mvp_raymarch_cuda``): one ``torch.autograd.Function`` that culls
-   on the values, marches, and in the backward re-marches with the forward's
-   saved candidates; the affine gradients go on to primpos, primrot and
-   primscale in PyTorch.
+   on the values, marches (saving the state when a gradient is needed), and
+   in the backward marches with the forward's saved candidates and state;
+   the affine gradients go on to primpos, primrot and primscale in PyTorch.
 """
 
 from __future__ import annotations
@@ -42,7 +46,8 @@ from ava256_tpu_torch.ops.cuda_lib import CudaLib
 MARCH_FWD_LIB = CudaLib("mvp_march_fwd.cu")
 MARCH_BWD_LIB = CudaLib("mvp_march_bwd.cu")
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
-WINDOW = 16  # step rows marched per window, as kWindow in the kernel
+WINDOW = 16  # step rows marched per window, as kWindow in the kernels
+STATE_ROWS = 5  # the forward's per-ray saturation state: C_s (rgb), a_s, alpha
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -248,8 +253,9 @@ def _pow_abs(x: torch.Tensor, p: float) -> torch.Tensor:
 
 def _trilinear_plain(vol: torch.Tensor, bs: int, fx, fy, fz):
     """vol [NT, bs^3, C] (one box per tile), f* [NT, R] cell coordinates ->
-    [NT, R, C]; corners outside the box read zero. Same sum order as the
-    kernel's trilinear()."""
+    [NT, R, C]; corners outside the box read zero (a select, so that what
+    lies in the clamped cell does not matter). Same sum order as the kernel's
+    trilinear()."""
     x0, y0, z0 = torch.floor(fx), torch.floor(fy), torch.floor(fz)
     wx1, wy1, wz1 = fx - x0, fy - y0, fz - z0
     c = vol.shape[-1]
@@ -265,7 +271,7 @@ def _trilinear_plain(vol: torch.Tensor, bs: int, fx, fy, fz):
                 vals = torch.gather(vol, 1, idx[..., None].expand(-1, -1, c))
                 wgt = ((wx1 if dx else 1.0 - wx1) * (wy1 if dy else 1.0 - wy1)
                        * (wz1 if dz else 1.0 - wz1))
-                out = out + vals * ok[..., None] * wgt[..., None]
+                out = out + torch.where(ok[..., None], vals, 0.0) * wgt[..., None]
     return out
 
 
@@ -303,6 +309,29 @@ def _row_ranges(scal, o, d, tmin, tmax, dt, nbuf):
         r0[:, c] = torch.clamp(torch.amin(lo, dim=1), min=0.0).long()
         r1[:, c] = torch.clamp(torch.amax(hi, dim=1), max=float(nbuf)).long()
     return r0, r1
+
+
+def ray_candidates_plain(scal, t_o, t_d, t_mm, dt, nbuf):
+    """The rows each thread of the kernels walks (``row_range`` in
+    csrc/mvp_march_common.cuh): hit [NT, T2, MH], true where the ray's slab
+    interval of the candidate is not empty, and the ray's own step rows
+    [lo, hi) of it [NT, T2, MH], with one row of margin on either side,
+    clamped to [0, nbuf] (0, 0 where it misses). The kernels evaluate a
+    (ray, row, candidate) sample only inside them."""
+    o = tuple(t_o[:, j] for j in range(3))
+    d = tuple(t_d[:, j] for j in range(3))
+    tmin, tmax = t_mm[:, 0], t_mm[:, 1]
+    hit, lo, hi = [], [], []
+    for c in range(scal.shape[1]):
+        _, _, tin, tout, seg = _slab_plain(scal[:, c], o, d, tmin, tmax)
+        lo_c = torch.clamp(torch.floor((tin - tmin) / dt) - 1.0, 0.0, float(nbuf))
+        hi_c = torch.clamp(torch.ceil((tout - tmin) / dt) + 1.0, 0.0, float(nbuf))
+        lo_c = torch.where(seg, lo_c, torch.zeros_like(lo_c)).long()
+        hi_c = torch.where(seg, hi_c, torch.zeros_like(hi_c)).long()
+        hit.append(seg & (lo_c < hi_c))
+        lo.append(lo_c)
+        hi.append(hi_c)
+    return torch.stack(hit, dim=-1), torch.stack(lo, dim=-1), torch.stack(hi, dim=-1)
 
 
 class _TileMarch:
@@ -366,6 +395,8 @@ class _TileMarch:
             f2 = [(sw[..., j] + 1.0) * self.half for j in range(3)]
         smp = _trilinear_plain(self.tpl[self.gid[:, c]], self.bs, *f2).reshape(
             self.ntiles, self.t2, -1, 4)
+        # the kernels take no sample where the mask is off: nothing read there counts
+        smp = torch.where(mask[..., None], smp, 0.0)
         return dict(t=t, y=y, fade=fade, mask=mask, u=u, f=f, f2=f2, smp=smp)
 
     def window_sums(self, w0, w1, active, counts=None):
@@ -390,16 +421,19 @@ class _TileMarch:
 
 
 def march_tiles_plain(gid, scal, t_o, t_d, t_mm, template, warp, dt, fadescale, fadeexp,
-                      nbuf, counts: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+                      nbuf, counts: Optional[Dict[str, torch.Tensor]] = None,
+                      with_state: bool = False):
     """Plain PyTorch version of the forward kernel: the same per-tile march
     and composite, looping over windows of step rows and over candidates, and
     vectorized over tiles x rays x the rows of a window. Arguments as for
-    ``march_tiles``; returns [NT, 4, T2]. ``counts``, when given, gets
-    ``"samples"``: the (ray, row, candidate) samples the kernel evaluates on
-    these inputs (the tiles' early exit included)."""
+    ``march_tiles``; returns [NT, 4, T2], with ``with_state`` also the
+    saturation state [NT, 5, T2]. ``counts``, when given, gets ``"samples"``:
+    the (ray, row, candidate) samples the kernel evaluates on these inputs
+    (the tiles' early exit at a window's end included)."""
     m = _TileMarch(gid, scal, t_o, t_d, t_mm, template, warp, dt, fadescale, fadeexp, nbuf)
     cum = torch.zeros_like(m.tmin)
     rgb = [torch.zeros_like(m.tmin) for _ in range(3)]
+    sat = [torch.zeros_like(m.tmin) for _ in range(4)]  # row sums of the saturation row
     active = torch.ones(m.ntiles, dtype=torch.bool, device=m.dev)
     for w0, w1 in m.windows():
         acc = m.window_sums(w0, w1, active, counts)
@@ -410,11 +444,16 @@ def march_tiles_plain(gid, scal, t_o, t_d, t_mm, template, warp, dt, fadescale, 
                 a, min=1e-12)
             keep = active[:, None]
             rgb = [torch.where(keep, rgb[j] + scale * acc[j][..., r], rgb[j]) for j in range(3)]
+            if with_state:
+                crosses = keep & (cum < 1.0) & (nw >= 1.0)
+                sat = [torch.where(crosses, acc[j][..., r], sat[j]) for j in range(4)]
             cum = torch.where(keep, nw, cum)
         active = active & ~m.done(cum, w1).all(dim=1)
         if not bool(active.any()):
             break
-    return torch.stack(rgb + [torch.clamp(cum, max=1.0)], dim=1)
+    alpha = torch.clamp(cum, max=1.0)
+    out = torch.stack(rgb + [alpha], dim=1)
+    return (out, torch.stack(sat + [alpha], dim=1)) if with_state else out
 
 
 def _trilinear_bwd_plain(vol, dvol, gid_c, bs, fx, fy, fz, dS):
@@ -440,7 +479,7 @@ def _trilinear_bwd_plain(vol, dvol, gid_c, bs, fx, fy, fz, dS):
                 wz = wz1 if dz else 1.0 - wz1
                 okf = ok.to(fx.dtype)
                 vals = torch.gather(vol, 1, idx[..., None].expand(-1, -1, ch))
-                dot = torch.sum(vals * dS, dim=-1) * okf
+                dot = torch.sum(torch.where(ok[..., None], vals, 0.0) * dS, dim=-1)
                 contrib = dS * (((wx * wy) * wz) * okf)[..., None]
                 flat.index_add_(0, (gid_c[:, None] * cells + idx).reshape(-1),
                                 contrib.reshape(-1, ch))
@@ -451,15 +490,17 @@ def _trilinear_bwd_plain(vol, dvol, gid_c, bs, fx, fy, fz, dS):
 
 
 def march_tiles_bwd_plain(gid, scal, t_o, t_d, t_mm, g_tiles, template, warp, dt, fadescale,
-                          fadeexp, nbuf, counts: Optional[Dict[str, torch.Tensor]] = None):
-    """Plain PyTorch version of the backward kernel (csrc/mvp_march_bwd.cu),
-    pass by pass: (1) the forward march keeping each ray's saturation state,
-    (2) per window the rows' cotangents cscale_r and dL/da_r, (3) per window
-    and candidate the samples' cotangents chained into the boxes and the
-    affine. Arguments as for ``march_tiles_bwd``; returns (d_template
-    [N*K, bs, bs, bs, 4], d_warp or None, d_affine [N*K, 12]). ``counts``
-    gets ``"forward_samples"`` (passes 1 and 2 together) and
-    ``"chained_samples"`` (pass 3), as the kernel evaluates them."""
+                          fadeexp, nbuf, counts: Optional[Dict[str, torch.Tensor]] = None,
+                          state: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of the backward kernel (csrc/mvp_march_bwd.cu):
+    from the forward's saturation state (``state`` [NT, 5, T2]; when None, the
+    forward march is run once more for it), per window the march's row sums
+    and the rows' cotangents cscale_r and dL/da_r, then per candidate the
+    samples' cotangents chained into the boxes and the affine. Arguments as
+    for ``march_tiles_bwd``; returns (d_template [N*K, bs, bs, bs, 4], d_warp
+    or None, d_affine [N*K, 12]). ``counts`` gets ``"forward_samples"`` (the
+    samples marched for row sums, the march for a missing state included) and
+    ``"chained_samples"``."""
     m = _TileMarch(gid, scal, t_o, t_d, t_mm, template, warp, dt, fadescale, fadeexp, nbuf)
     bs = m.bs
     d_tpl = torch.zeros_like(m.tpl)
@@ -468,35 +509,20 @@ def march_tiles_bwd_plain(gid, scal, t_o, t_d, t_mm, g_tiles, template, warp, dt
     g = [g_tiles[:, j] for j in range(4)]  # [NT, T2]
     fwd_counts = None if counts is None else {}
 
-    # pass 1
-    cum = torch.zeros_like(m.tmin)
-    wsat = torch.zeros_like(m.tmin)
-    active = torch.ones(m.ntiles, dtype=torch.bool, device=m.dev)
-    w_end = torch.full((m.ntiles,), m.rmax, dtype=torch.int64, device=m.dev)
-    for w0, w1 in m.windows():
-        acc = m.window_sums(w0, w1, active, fwd_counts)
-        for r in range(w1 - w0):
-            a = acc[3][..., r]
-            nw = cum + a
-            w = (g[0] * acc[0][..., r] + g[1] * acc[1][..., r] + g[2] * acc[2][..., r]) \
-                / torch.clamp(a, min=1e-12)
-            keep = active[:, None]
-            wsat = torch.where(keep & (cum < 1.0) & (nw >= 1.0), w, wsat)
-            cum = torch.where(keep, nw, cum)
-        stop = active & m.done(cum, w1).all(dim=1)
-        w_end = torch.where(stop, torch.full_like(w_end, w1), w_end)
-        active = active & ~stop
-        if not bool(active.any()):
-            break
-    ga_qf = torch.where(cum < 1.0, g[3], torch.zeros_like(cum))
+    if state is None:
+        _, state = march_tiles_plain(gid, scal, t_o, t_d, t_mm, template, warp, dt, fadescale,
+                                     fadeexp, nbuf, counts=fwd_counts, with_state=True)
+    a_s = state[:, 3]
+    wsat = torch.where(
+        a_s > 0.0,
+        (g[0] * state[:, 0] + g[1] * state[:, 1] + g[2] * state[:, 2]) / torch.clamp(a_s, min=1e-12),
+        torch.zeros_like(a_s))
+    ga_qf = torch.where(state[:, 4] < 1.0, g[3], torch.zeros_like(a_s))
 
-    # passes 2 and 3
     cfade = -fadescale * fadeexp
     cum = torch.zeros_like(m.tmin)
+    active = torch.ones(m.ntiles, dtype=torch.bool, device=m.dev)
     for w0, w1 in m.windows():
-        active = w_end > w0
-        if not bool(active.any()):
-            break
         acc = m.window_sums(w0, w1, active, fwd_counts)
         csc, da = [], []
         for r in range(w1 - w0):
@@ -527,6 +553,7 @@ def march_tiles_bwd_plain(gid, scal, t_o, t_d, t_mm, g_tiles, template, warp, dt
             g_u = (da + rgb_dot) * alpha
             gc = m.gid[:, c]
             df = _trilinear_bwd_plain(m.tpl[gc], d_tpl, gc, bs, *sp["f2"], dS)
+            df = [torch.where(live.reshape(x.shape), x, 0.0) for x in df]
             if m.wrp is not None:
                 dsw = torch.stack([x * m.half for x in df], dim=-1)
                 df = _trilinear_bwd_plain(m.wrp[gc], d_wrp, gc, bs, *sp["f"], dsw)
@@ -544,15 +571,19 @@ def march_tiles_bwd_plain(gid, scal, t_o, t_d, t_mm, g_tiles, template, warp, dt
             terms = [torch.sum(pos[i] * dyv[j], dim=(1, 2)) for i in range(3) for j in range(3)]
             terms += [torch.sum(dyv[j], dim=(1, 2)) for j in range(3)]
             d_aff.index_add_(0, gc, torch.stack(terms, dim=-1))
+        active = active & ~m.done(cum, w1).all(dim=1)
+        if not bool(active.any()):
+            break
     if counts is not None:
         counts["forward_samples"] = fwd_counts.get("samples", 0)
     d_tpl = d_tpl.reshape(template.shape)
     return d_tpl, (None if d_wrp is None else d_wrp.reshape(warp.shape)), d_aff
 
 
-def _check_tiles(gid, scal, t_o, t_d, t_mm, template, warp, **more) -> None:
-    """What the kernels take: contiguous float32 tensors on the rays' CUDA
-    device in the shapes of ``march_tiles``."""
+def _check_tiles(gid, scal, t_o, t_d, t_mm, template, warp, state=None, **more) -> None:
+    """What the kernels take: contiguous float32 tensors on the rays' device
+    in the shapes of ``march_tiles``, the template table 16-byte aligned (its
+    RGBA cells are read and added to as one vector each)."""
     ntiles, mh = gid.shape
     t2 = t_o.shape[2]
     bs = template.shape[1]
@@ -560,6 +591,8 @@ def _check_tiles(gid, scal, t_o, t_d, t_mm, template, warp, **more) -> None:
     f32 = dict(scal=scal, t_o=t_o, t_d=t_d, t_mm=t_mm, template=template, **more)
     if warp is not None:
         f32["warp"] = warp
+    if state is not None:
+        f32["state"] = state
     for name, x in f32.items():
         if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"{name}: need a contiguous float32 tensor on {dev}, got "
@@ -569,12 +602,18 @@ def _check_tiles(gid, scal, t_o, t_d, t_mm, template, warp, **more) -> None:
     if bs not in (2, 4, 8, 16) or template.shape[1:] != (bs, bs, bs, 4):
         raise ValueError(f"template must be [N*K, bs, bs, bs, 4] with bs in 2/4/8/16, "
                          f"got {tuple(template.shape)}")
+    if template.data_ptr() % 16:
+        raise ValueError("template: the table must start at a 16-byte aligned address "
+                         f"(data_ptr() % 16 is {template.data_ptr() % 16})")
     if warp is not None and warp.shape != template.shape[:-1] + (3,):
         raise ValueError(f"warp must be {tuple(template.shape[:-1]) + (3,)}")
     if t2 % 32 or t2 > 1024 or t_o.shape != (ntiles, 3, t2) or t_d.shape != t_o.shape \
             or t_mm.shape != (ntiles, 2, t2) or scal.shape != (ntiles, mh, 12):
         raise ValueError("rays must be [NT, 3|2, T2] with T2 = tile^2 a multiple of 32 "
                          "and at most 1024, candidates [NT, MH(, 12)]")
+    if state is not None and state.shape != (ntiles, STATE_ROWS, t2):
+        raise ValueError(f"state must be {(ntiles, STATE_ROWS, t2)} (the forward's second "
+                         f"output on these tiles), got {tuple(state.shape)}")
 
 
 def _check_smem(smem: int, mh: int, t2: int, bs: int) -> None:
@@ -583,24 +622,32 @@ def _check_smem(smem: int, mh: int, t2: int, bs: int) -> None:
                          f"of shared memory (limit {_SMEM_LIMIT})")
 
 
+def _probe_counts(buf: torch.Tensor):
+    """(warp trips, lanes entered, useful samples) triples of a probe buffer."""
+    vals = [int(v) for v in buf.tolist()]
+    return [tuple(vals[i:i + 3]) for i in range(0, len(vals), 3)]
+
+
 class _MarchKernel:
     """Wrapper of the forward CUDA kernel with its launch count."""
 
-    def __init__(self):
+    def __init__(self, cuda_lib: CudaLib):
+        self.cuda_lib = cuda_lib
         self.launches = 0
 
-    @staticmethod
-    def _lib() -> ctypes.CDLL:
-        lib = MARCH_FWD_LIB.lib()
+    def _lib(self) -> ctypes.CDLL:
+        lib = self.cuda_lib.lib()
         lib.mvp_march_fwd.restype = ctypes.c_int
-        lib.mvp_march_fwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+        lib.mvp_march_fwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                                       + [ctypes.c_float] * 3 + [ctypes.c_void_p])
         lib.mvp_march_fwd_smem_bytes.restype = ctypes.c_size_t
         lib.mvp_march_fwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         return lib
 
     def __call__(self, gid, scal, t_o, t_d, t_mm, template, warp, dt, fadescale, fadeexp,
-                 nbuf) -> torch.Tensor:
+                 nbuf, with_state: bool = False, probe: Optional[dict] = None):
+        """``probe``, when given, runs the counting instance of the kernel and
+        gets ``"march"``: (warp trips, lanes entered, useful samples)."""
         _check_tiles(gid, scal, t_o, t_d, t_mm, template, warp)
         ntiles, mh = gid.shape
         t2 = t_o.shape[2]
@@ -609,38 +656,52 @@ class _MarchKernel:
         lib = self._lib()
         _check_smem(lib.mvp_march_fwd_smem_bytes(t2, mh), mh, t2, bs)
         out = torch.empty((ntiles, 4, t2), dtype=torch.float32, device=dev)
+        state = (torch.empty((ntiles, STATE_ROWS, t2), dtype=torch.float32, device=dev)
+                 if with_state else None)
+        tally = None if probe is None else torch.zeros(3, dtype=torch.int64, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
-            err = lib.mvp_march_fwd(gid.data_ptr(), scal.data_ptr(), t_o.data_ptr(), t_d.data_ptr(),
-                     t_mm.data_ptr(), template.data_ptr(),
-                     None if warp is None else warp.data_ptr(), out.data_ptr(),
-                     ntiles, t2, mh, bs, nbuf, dt, fadescale, fadeexp, stream)
-        MARCH_FWD_LIB.check(err, "mvp_march_fwd launch")
+            err = lib.mvp_march_fwd(
+                gid.data_ptr(), scal.data_ptr(), t_o.data_ptr(), t_d.data_ptr(), t_mm.data_ptr(),
+                template.data_ptr(), None if warp is None else warp.data_ptr(), out.data_ptr(),
+                None if state is None else state.data_ptr(),
+                None if tally is None else tally.data_ptr(),
+                ntiles, t2, mh, bs, nbuf, dt, fadescale, fadeexp, stream)
+        self.cuda_lib.check(err, "mvp_march_fwd launch")
         self.launches += 1
-        return out
+        if probe is not None:
+            probe["march"], = _probe_counts(tally)
+        return (out, state) if with_state else out
 
 
 class _MarchBwdKernel:
-    """Wrapper of the backward CUDA kernel with its launch count."""
+    """Wrapper of the backward CUDA kernel with its launch count;
+    ``launches_with_state`` counts the launches that were handed the
+    forward's saturation state (the others ran ``forward`` first for it)."""
 
-    def __init__(self):
+    def __init__(self, cuda_lib: CudaLib, forward: _MarchKernel):
+        self.cuda_lib = cuda_lib
+        self.forward = forward
         self.launches = 0
+        self.launches_with_state = 0
 
-    @staticmethod
-    def _lib() -> ctypes.CDLL:
-        lib = MARCH_BWD_LIB.lib()
+    def _lib(self) -> ctypes.CDLL:
+        lib = self.cuda_lib.lib()
         lib.mvp_march_bwd.restype = ctypes.c_int
-        lib.mvp_march_bwd.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+        lib.mvp_march_bwd.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
                                       + [ctypes.c_float] * 3 + [ctypes.c_void_p])
         lib.mvp_march_bwd_smem_bytes.restype = ctypes.c_size_t
         lib.mvp_march_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
         return lib
 
     def __call__(self, gid, scal, t_o, t_d, t_mm, g_tiles, template, warp, dt, fadescale,
-                 fadeexp, nbuf, counts: Optional[Dict[str, torch.Tensor]] = None):
-        """``counts``, when given, gets ``"forward_samples"`` and
-        ``"chained_samples"`` as ``march_tiles_bwd_plain`` counts them."""
-        _check_tiles(gid, scal, t_o, t_d, t_mm, template, warp, g_tiles=g_tiles)
+                 fadeexp, nbuf, counts: Optional[Dict[str, torch.Tensor]] = None,
+                 state: Optional[torch.Tensor] = None, probe: Optional[dict] = None):
+        """``counts``, when given, gets ``"forward_samples"`` (the samples this
+        kernel marched for row sums) and ``"chained_samples"``; ``probe`` runs
+        the counting instance and gets ``"march"`` and ``"chain"``: (warp
+        trips, lanes entered, useful samples) each."""
+        _check_tiles(gid, scal, t_o, t_d, t_mm, template, warp, state=state, g_tiles=g_tiles)
         ntiles, mh = gid.shape
         t2 = t_o.shape[2]
         bs = template.shape[1]
@@ -649,27 +710,37 @@ class _MarchBwdKernel:
             raise ValueError(f"g_tiles must be {(ntiles, 4, t2)}, got {tuple(g_tiles.shape)}")
         lib = self._lib()
         _check_smem(lib.mvp_march_bwd_smem_bytes(t2, mh), mh, t2, bs)
+        given = state is not None
+        if not given:
+            _, state = self.forward(gid, scal, t_o, t_d, t_mm, template, warp, dt, fadescale,
+                                    fadeexp, nbuf, with_state=True)
         d_tpl = torch.zeros_like(template)
         d_wrp = None if warp is None else torch.zeros_like(warp)
         d_aff = torch.zeros((template.shape[0], 12), dtype=torch.float32, device=dev)
         work = None if counts is None else torch.zeros(2, dtype=torch.int64, device=dev)
+        tally = None if probe is None else torch.zeros(6, dtype=torch.int64, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
             err = lib.mvp_march_bwd(
                 gid.data_ptr(), scal.data_ptr(), t_o.data_ptr(), t_d.data_ptr(), t_mm.data_ptr(),
-                g_tiles.data_ptr(), template.data_ptr(),
+                g_tiles.data_ptr(), state.data_ptr(), template.data_ptr(),
                 None if warp is None else warp.data_ptr(), d_tpl.data_ptr(),
                 None if d_wrp is None else d_wrp.data_ptr(), d_aff.data_ptr(),
-                None if work is None else work.data_ptr(), ntiles, t2, mh, bs, nbuf, dt, fadescale, fadeexp, stream)
-        MARCH_BWD_LIB.check(err, "mvp_march_bwd launch")
+                None if work is None else work.data_ptr(),
+                None if tally is None else tally.data_ptr(),
+                ntiles, t2, mh, bs, nbuf, dt, fadescale, fadeexp, stream)
+        self.cuda_lib.check(err, "mvp_march_bwd launch")
         self.launches += 1
+        self.launches_with_state += int(given)
         if counts is not None:
             counts["forward_samples"], counts["chained_samples"] = work[0], work[1]
+        if probe is not None:
+            probe["march"], probe["chain"] = _probe_counts(tally)
         return d_tpl, d_wrp, d_aff
 
 
-march_tiles_kernel = _MarchKernel()
-march_tiles_bwd_kernel = _MarchBwdKernel()
+march_tiles_kernel = _MarchKernel(MARCH_FWD_LIB)
+march_tiles_bwd_kernel = _MarchBwdKernel(MARCH_BWD_LIB, march_tiles_kernel)
 
 
 def _route(t_o: torch.Tensor, kernel, plain):
@@ -682,26 +753,32 @@ def _route(t_o: torch.Tensor, kernel, plain):
 
 
 def march_tiles(gid, scal, t_o, t_d, t_mm, template, warp, dt, fadescale, fadeexp,
-                nbuf) -> torch.Tensor:
+                nbuf, with_state: bool = False):
     """March and composite every tile. gid [NT, MH] int32 flat box index,
     scal [NT, MH, 12] candidate affines, t_o/t_d [NT, 3, T2], t_mm [NT, 2, T2],
     template [N*K, bs, bs, bs, 4], warp [N*K, bs, bs, bs, 3] or None.
-    Returns [NT, 4, T2] RGBA. CUDA tensors go to the kernel, CPU tensors to
-    its plain version."""
+    Returns [NT, 4, T2] RGBA, with ``with_state`` also the rays' saturation
+    state [NT, 5, T2] for ``march_tiles_bwd``. CUDA tensors go to the kernel,
+    CPU tensors to its plain version."""
     return _route(t_o, march_tiles_kernel, march_tiles_plain)(
-        gid, scal, t_o, t_d, t_mm, template, warp, dt, fadescale, fadeexp, nbuf)
+        gid, scal, t_o, t_d, t_mm, template, warp, dt, fadescale, fadeexp, nbuf,
+        with_state=with_state)
 
 
 def march_tiles_bwd(gid, scal, t_o, t_d, t_mm, g_tiles, template, warp, dt, fadescale,
-                    fadeexp, nbuf):
+                    fadeexp, nbuf, state: Optional[torch.Tensor] = None):
     """Backward of ``march_tiles``: g_tiles [NT, 4, T2] the cotangent of its
-    output, the other arguments as there. Returns (d_template
-    [N*K, bs, bs, bs, 4], d_warp [N*K, bs, bs, bs, 3] or None, d_affine
-    [N*K, 12]: each primitive's dA row-major then db, summed over the tiles
-    that hold it as a candidate). CUDA tensors go to the kernel, CPU tensors
-    to its plain version."""
+    output, state its second output on the same inputs (None: the forward is
+    marched once more for it), the other arguments as there. Returns
+    (d_template [N*K, bs, bs, bs, 4], d_warp [N*K, bs, bs, bs, 3] or None,
+    d_affine [N*K, 12]: each primitive's dA row-major then db, summed over
+    the tiles that hold it as a candidate). CUDA tensors go to the kernel,
+    CPU tensors to its plain version."""
+    if state is not None and not t_o.is_cuda:
+        _check_tiles(gid, scal, t_o, t_d, t_mm, template, warp, state=state, g_tiles=g_tiles)
     return _route(t_o, march_tiles_bwd_kernel, march_tiles_bwd_plain)(
-        gid, scal, t_o, t_d, t_mm, g_tiles, template, warp, dt, fadescale, fadeexp, nbuf)
+        gid, scal, t_o, t_d, t_mm, g_tiles, template, warp, dt, fadescale, fadeexp, nbuf,
+        state=state)
 
 
 # ---------------------------------------------------------------------------
@@ -755,7 +832,7 @@ def affine_grads(primpos, primrot, primscale, d_aff):
 class _Raymarch(torch.autograd.Function):
     """The differentiable op, as ``_make_raymarch`` of the JAX package:
     culling on the values only, the forward march, and the backward march
-    with the forward's saved candidates. Gradients flow to primpos, primrot,
+    with the forward's saved candidates and saturation state. Gradients flow to primpos, primrot,
     primscale, template and warp; rays, tminmax and prim_mask get none."""
 
     @staticmethod
@@ -769,14 +846,17 @@ class _Raymarch(torch.autograd.Function):
             cull_max_groups=cfg["cull_max_groups"], two_stage=cfg["two_stage_cull"])
         scal = candidate_affines(primpos, primrot, primscale, cand_gid, cand_valid)
         gid32 = cand_gid.to(torch.int32).contiguous()
-        out = march_tiles(
+        # the rays' saturation state is asked for only when a gradient will be
+        need_state = any(ctx.needs_input_grad)
+        res = march_tiles(
             gid32, scal, t_o, t_d, t_mm, template.reshape(n * K, bs, bs, bs, 4).contiguous(),
             None if warp is None else warp.reshape(n * K, bs, bs, bs, 3).contiguous(),
-            cfg["dt"], cfg["fadescale"], cfg["fadeexp"], cfg["nbuf"])
-        # saved: the small culling results and the inputs; the candidate
-        # affines are rebuilt in the backward
+            cfg["dt"], cfg["fadescale"], cfg["fadeexp"], cfg["nbuf"], with_state=need_state)
+        out, state = res if need_state else (res, None)
+        # saved: the small culling results, the state and the inputs; the
+        # candidate affines are rebuilt in the backward
         ctx.save_for_backward(t_o, t_d, t_mm, gid32, cand_valid, primpos, primrot, primscale,
-                              template, warp)
+                              template, warp, state)
         ctx.cfg, ctx.meta = cfg, meta
         return untile(out, meta, cfg["tile"])
 
@@ -784,7 +864,7 @@ class _Raymarch(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         (t_o, t_d, t_mm, gid32, cand_valid, primpos, primrot, primscale, template,
-         warp) = ctx.saved_tensors
+         warp, state) = ctx.saved_tensors
         cfg, meta = ctx.cfg, ctx.meta
         n, K = primpos.shape[:2]
         bs = template.shape[2]
@@ -796,7 +876,7 @@ class _Raymarch(torch.autograd.Function):
             gid32, scal, t_o, t_d, t_mm, g_tiles,
             template.reshape(n * K, bs, bs, bs, 4).contiguous(),
             None if warp is None else warp.reshape(n * K, bs, bs, bs, 3).contiguous(),
-            cfg["dt"], cfg["fadescale"], cfg["fadeexp"], cfg["nbuf"])
+            cfg["dt"], cfg["fadescale"], cfg["fadeexp"], cfg["nbuf"], state=state)
         d_pos, d_rot, d_scale = affine_grads(primpos, primrot, primscale, d_aff)
         return (d_pos, d_rot, d_scale, d_tpl.reshape(template.shape),
                 None if d_wrp is None else d_wrp.reshape(warp.shape), None, None, None, None,

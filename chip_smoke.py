@@ -31,14 +31,18 @@ Phases (each prints one line; any failure exits non-zero):
    ava256_tpu_torch.train.loop`` calls), on the same configuration: two steps
    from scratch into a temporary directory, then a second call that finds
    the checkpoint there, resumes and takes one more;
-7. forward kernel vs plain on the flagship scene, with the kernel's time, the
-   plain version's time and the kernel's bound;
+7. forward kernel vs plain on the flagship scene, its second output (the
+   rays' saturation state, which the training step saves for the backward)
+   included, with the kernel's time with and without that output, the plain
+   version's time and the kernel's bound;
 8. backward kernel vs plain on the flagship scene: the kernel over all tiles
    twice (the largest difference between the two runs is printed: its sums
-   are floating-point atomics) and timed (mean of 5); the plain version on
-   every BWD_PLAIN_STRIDE-th tile, against the kernel on the same tiles, both
+   are floating-point atomics) and timed (mean of 5) as the training step
+   calls it, with the forward's saved state, and without one (the wrapper
+   then runs the forward kernel first); the plain version on every
+   BWD_PLAIN_STRIDE-th tile, against the kernel on the same tiles, both
    timed there too. The bound counts one evaluation of every sample the
-   forward kernel counted plus the chain of every chained sample.
+   plain forward counted plus the chain of every chained sample.
 
 Tolerances, kernel vs plain. Forward: rtol = atol = 1e-5; both run the same
 fp32 operations in the same order (the kernels are built without FMA
@@ -100,9 +104,9 @@ OPS_PER_WARP_SAMPLE = 85
 # (18), the 8-corner trilinear gradient of 4 channels with its adds into the
 # gradient table (250), the fade's derivative (36), the ray position and the
 # 12 affine terms (27). The function needs each sample once (as the forward
-# evaluates it) and the chain; what the kernel's three marches spend beyond
-# that (two more evaluations of every sample, a third of every chained one)
-# is the design's cost and is printed beside the bound, not inside it.
+# evaluates it) and the chain; what the kernel's two marches spend beyond
+# that (a second evaluation of every chained sample) is the design's cost and
+# is printed beside the bound (two_march_ops_ms), not inside it.
 OPS_PER_CHAINED_SAMPLE = 498
 OPS_PER_CHAIN = OPS_PER_CHAINED_SAMPLE - 167
 
@@ -127,6 +131,18 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def march_launches():
+    """(forward kernel launches, backward kernel launches, those of the
+    backward that were handed the forward's saved state)."""
+    return (rc.march_tiles_kernel.launches, rc.march_tiles_bwd_kernel.launches,
+            rc.march_tiles_bwd_kernel.launches_with_state)
+
+
+def reset_march_launches() -> None:
+    rc.march_tiles_kernel.launches = 0
+    rc.march_tiles_bwd_kernel.launches = rc.march_tiles_bwd_kernel.launches_with_state = 0
 
 
 def check_close(what: str, got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -331,7 +347,7 @@ def flagship_train(model, ds, batches, dev: torch.device):
     def one_step(state, batch, flags):
         names = ("start", "forward", "backward", "optimizer")
         ev = {n: torch.cuda.Event(enable_timing=True) for n in names}
-        before = (rc.march_tiles_kernel.launches, rc.march_tiles_bwd_kernel.launches)
+        before = march_launches()
         probe = next(decoders["rgbdec"].parameters())
         old = probe.detach().clone()
         ev["start"].record()
@@ -343,13 +359,17 @@ def flagship_train(model, ds, batches, dev: torch.device):
                    forward_ms=ev["start"].elapsed_time(ev["forward"]),
                    backward_ms=ev["forward"].elapsed_time(ev["backward"]),
                    optimizer_ms=ev["backward"].elapsed_time(ev["optimizer"]),
-                   fwd_launches=rc.march_tiles_kernel.launches - before[0],
-                   bwd_launches=rc.march_tiles_bwd_kernel.launches - before[1])
+                   **{k: now - was for k, now, was in zip(
+                       ("fwd_launches", "bwd_launches", "bwd_with_state"), march_launches(),
+                       before)})
         vals = [rec["total"]] + list(rec["terms"].values())
         if not all(np.isfinite(v) for v in vals):
             raise AssertionError(f"step {rec['step']}: non-finite loss {rec}")
         if rec["fwd_launches"] < 1 or rec["bwd_launches"] < 1:
             raise AssertionError(f"step {rec['step']}: a march kernel was not launched: {rec}")
+        if (rec["fwd_launches"], rec["bwd_with_state"]) != (1, rec["bwd_launches"]):
+            raise AssertionError(f"step {rec['step']}: the backward was not handed the forward's "
+                                 f"saved state (or marched the forward again): {rec}")
         for p_name, p in model.named_parameters():
             if p.grad is not None and not bool(torch.isfinite(p.grad).all()):
                 raise AssertionError(f"step {rec['step']}: non-finite gradient of {p_name}")
@@ -366,8 +386,7 @@ def flagship_train(model, ds, batches, dev: torch.device):
         return state
 
     torch.cuda.reset_peak_memory_stats(dev)
-    rc.march_tiles_kernel.launches = 0  # the main path starts here
-    rc.march_tiles_bwd_kernel.launches = 0
+    reset_march_launches()  # the main path starts here
     state = one_step(state, batches[0], warm)
     state = one_step(state, batches[1], normal)
     state = one_step(state, batches[2], normal)
@@ -380,7 +399,7 @@ def flagship_train(model, ds, batches, dev: torch.device):
         if state.step != 3:
             raise AssertionError(f"restored step {state.step}, saved 3")
         state = one_step(state, batches[3], normal)
-    launches = (rc.march_tiles_kernel.launches, rc.march_tiles_bwd_kernel.launches)
+    launches = march_launches()
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30  # the main path ends here
 
     again = steps[-1]
@@ -400,7 +419,7 @@ def flagship_train(model, ds, batches, dev: torch.device):
         ms_per_step=round(mean["ms"], 3), forward_ms=round(mean["forward_ms"], 3),
         backward_ms=round(mean["backward_ms"], 3), optimizer_ms=round(mean["optimizer_ms"], 3),
         ms_each=[round(r["ms"], 3) for r in steps], peak_gib=round(peak_gib, 3),
-        fwd_launches=launches[0], bwd_launches=launches[1],
+        fwd_launches=launches[0], bwd_launches=launches[1], bwd_with_state=launches[2],
         launches_per_step=[(r["fwd_launches"], r["bwd_launches"]) for r in steps],
         restored_step_param_drift=drift, lr=state.optimizer.schedule(state.step))
     for r in steps:
@@ -421,8 +440,7 @@ def flagship_loop(dev: torch.device):
     handler.emit = lambda record: lines.append(record.getMessage())
     loop.logger.addHandler(handler)
     loop.logger.setLevel(logging.INFO)
-    rc.march_tiles_kernel.launches = 0  # this path starts here
-    rc.march_tiles_bwd_kernel.launches = 0
+    reset_march_launches()  # this path starts here
     t0 = time.perf_counter()
     try:
         with tempfile.TemporaryDirectory() as out:
@@ -437,9 +455,9 @@ def flagship_loop(dev: torch.device):
                 raise AssertionError(f"loop: step {state.step} after resuming to step 3")
     finally:
         loop.logger.removeHandler(handler)
-    launches = (rc.march_tiles_kernel.launches, rc.march_tiles_bwd_kernel.launches)
+    launches = march_launches()
     seconds = time.perf_counter() - t0  # this path ends here
-    if launches != (3, 3):
+    if launches != (3, 3, 3):
         raise AssertionError(f"loop: kernel launches {launches} in 3 steps")
     if not any("Resumed from" in ln and "step 2" in ln for ln in lines):
         raise AssertionError(f"loop: the second call did not resume: {lines}")
@@ -453,7 +471,7 @@ def flagship_loop(dev: torch.device):
     if all(torch.equal(p.detach(), q) for p, q in zip(params, kept)):
         raise AssertionError("loop: the resumed step changed no parameter")
     log("loop", steps=3, resumed_at=2, losses=losses, fwd_launches=launches[0],
-        bwd_launches=launches[1], seconds=round(seconds, 3))
+        bwd_launches=launches[1], bwd_with_state=launches[2], seconds=round(seconds, 3))
     return launches
 
 
@@ -462,17 +480,16 @@ def flagship_loop(dev: torch.device):
 # ---------------------------------------------------------------------------
 
 
-def flagship_kernel(mi, dev: torch.device):
+def flagship_scene_args(mi, dev: torch.device):
+    """The march kernels' arguments on the flagship scene: the render's decoder
+    output and rays, culled as the op culls them. Returns (args of
+    ``rc.march_tiles``, gid [NT, MH] int64, valid [NT, MH])."""
     f = FLAGSHIP
     dt = float(mi["stepsize"])
     nbuf = rc.default_nbuf(dt)
     n, K = mi["primpos"].shape[:2]
     bs = mi["template"].shape[2]
     with torch.inference_mode():
-        march_ms = cuda_ms(lambda: rc.mvp_raymarch_cuda(
-            mi["raypos"], mi["raydir"], dt, mi["tminmax"], mi["primpos"], mi["primrot"],
-            mi["primscale"], mi["template"], tile=f["tile"], max_hit=f["max_hit"],
-            device=dev), reps=3)
         tmm = mi["tminmax"]
         tmm = torch.stack([tmm[..., 0], torch.minimum(tmm[..., 1], tmm[..., 0] + nbuf * dt)], -1)
         pm = torch.ones((n, K), device=dev)
@@ -483,15 +500,33 @@ def flagship_kernel(mi, dev: torch.device):
         args = (gid.to(torch.int32).contiguous(), scal, t_o, t_d, t_mm,
                 mi["template"].reshape(n * K, bs, bs, bs, 4).contiguous(), None, dt, 8.0, 8.0,
                 nbuf)
-        kern = rc.march_tiles_kernel(*args)
+    return args, gid, valid
+
+
+def flagship_kernel(mi, dev: torch.device):
+    f = FLAGSHIP
+    dt = float(mi["stepsize"])
+    args, gid, valid = flagship_scene_args(mi, dev)
+    t_o, nbuf, bs = args[2], args[10], args[5].shape[1]
+    with torch.inference_mode():
+        march_ms = cuda_ms(lambda: rc.mvp_raymarch_cuda(
+            mi["raypos"], mi["raydir"], dt, mi["tminmax"], mi["primpos"], mi["primrot"],
+            mi["primscale"], mi["template"], tile=f["tile"], max_hit=f["max_hit"],
+            device=dev), reps=3)
+        kern, state = rc.march_tiles_kernel(*args, with_state=True)
         kernel_ms = cuda_ms(lambda: rc.march_tiles_kernel(*args), reps=5)
+        state_ms = cuda_ms(lambda: rc.march_tiles_kernel(*args, with_state=True), reps=5)
         counts = {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        plain = rc.march_tiles_plain(*args, counts=counts)
+        plain, plain_state = rc.march_tiles_plain(*args, counts=counts, with_state=True)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(rc.march_tiles_kernel(*args), kern):
+            raise AssertionError("flagship scene: the output changes with the state output")
     err = check_close("flagship scene", kern, plain)
+    state_err = check_close("flagship scene, saturation state", state, plain_state)
+    saturated = float((plain_state[:, 3] > 0).float().mean())
 
     ntiles, mh = gid.shape
     t2 = t_o.shape[2]
@@ -504,17 +539,22 @@ def flagship_kernel(mi, dev: torch.device):
     no_reuse_ms = ntiles * mh * bs**3 * 16 / HBM_BYTES_PER_S * 1e3
     log("flagship-kernel", tiles=ntiles, max_hit=mh, nbuf=nbuf, valid_candidates=int(valid.sum()),
         boxes=boxes, samples=samples, bytes=nbytes, max_abs_err=err,
-        kernel_ms=round(kernel_ms, 4), plain_ms=round(plain_ms, 3),
+        state_max_abs_err=state_err, saturated_rays=round(saturated, 4),
+        kernel_ms=round(kernel_ms, 4), kernel_with_state_ms=round(state_ms, 4),
+        plain_ms=round(plain_ms, 3),
         raymarch_op_ms=round(march_ms, 4), bound_bytes_ms=round(bytes_ms, 5),
         bound_ops_ms=round(ops_ms, 5), per_tile_box_bytes_ms=round(no_reuse_ms, 5))
-    return args, boxes, samples, dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-                                      bound_ms=max(bytes_ms, ops_ms),
-                                      bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    return args, state, plain_state, boxes, samples, dict(
+        max_abs_err=max(err, state_err), ms=kernel_ms, ms_with_state=state_ms, plain_ms=plain_ms,
+        bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def flagship_kernel_bwd(args, boxes: int, samples: int, dev: torch.device):
-    """args: the forward kernel's arguments on the flagship scene; samples: the
-    (ray, row, candidate) samples the forward counted there."""
+def flagship_kernel_bwd(args, state, plain_state, boxes: int, samples: int, dev: torch.device):
+    """args: the forward kernel's arguments on the flagship scene; state: its
+    second output there, which only the backward kernel is given; plain_state:
+    the plain forward's, which only the plain backward is given, so that the
+    reference starts from nothing a kernel produced; samples: the (ray, row,
+    candidate) samples the plain forward counted there."""
     gid, scal, t_o, t_d, t_mm, tpl, warp, dt, fadescale, fadeexp, nbuf = args
     ntiles, mh = gid.shape
     t2 = t_o.shape[2]
@@ -525,10 +565,12 @@ def flagship_kernel_bwd(args, boxes: int, samples: int, dev: torch.device):
     every = (gid, scal, t_o, t_d, t_mm, g)
     sel = slice(0, ntiles, BWD_PLAIN_STRIDE)
     some = tuple(x[sel].contiguous() for x in every)
+    some_state = state[sel].contiguous()
+    some_plain_state = plain_state[sel].contiguous()
 
-    def kernel(tiles=every, counts=None):
+    def kernel(tiles=every, st=state, counts=None):
         return rc.march_tiles_bwd_kernel(*tiles, tpl, warp, dt, fadescale, fadeexp, nbuf,
-                                         counts=counts)
+                                         counts=counts, state=st)
 
     counts = {}
     with torch.inference_mode():
@@ -541,11 +583,17 @@ def flagship_kernel_bwd(args, boxes: int, samples: int, dev: torch.device):
                 raise AssertionError(f"flagship backward: non-finite {name}")
         del run2
         kernel_ms = cuda_ms(kernel, reps=5)
-        sub = kernel(some)
-        sub_ms = cuda_ms(lambda: kernel(some), reps=5)
+        no_state = kernel(st=None)  # the wrapper runs the forward kernel for the state
+        no_state_diff = max(float((a - b).abs().max() / a.abs().max())
+                            for a, b in zip(run1, no_state) if a is not None)
+        del no_state
+        no_state_ms = cuda_ms(lambda: kernel(st=None), reps=5)
+        sub = kernel(some, some_state)
+        sub_ms = cuda_ms(lambda: kernel(some, some_state), reps=5)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        plain = rc.march_tiles_bwd_plain(*some, tpl, warp, dt, fadescale, fadeexp, nbuf)
+        plain = rc.march_tiles_bwd_plain(*some, tpl, warp, dt, fadescale, fadeexp, nbuf,
+                                         state=some_plain_state)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
     errs = {name: check_grad(f"flagship backward {name}", a, b)
@@ -563,17 +611,18 @@ def flagship_kernel_bwd(args, boxes: int, samples: int, dev: torch.device):
     nsub = len(range(ntiles)[sel])
     log("flagship-kernel-bwd", tiles=ntiles, samples=samples, marched_samples=fwd_samples,
         chained_samples=chained, bytes=nbytes, kernel_ms=round(kernel_ms, 4),
-        rerun_max_rel_diff=rerun, plain_tiles=nsub,
+        kernel_without_state_ms=round(no_state_ms, 4), rerun_max_rel_diff=rerun,
+        without_state_max_rel_diff=no_state_diff, plain_tiles=nsub,
         plain_tiles_of=f"every {BWD_PLAIN_STRIDE}th tile",
         kernel_ms_on_those_tiles=round(sub_ms, 4), plain_ms_on_those_tiles=round(plain_ms, 3),
         bound_bytes_ms=round(bytes_ms, 5), bound_ops_ms=round(ops_ms, 5),
-        three_march_ops_ms=round(design_ops_ms, 5),
+        two_march_ops_ms=round(design_ops_ms, 5),
         **{f"max_rel_err_{k}": v for k, v in errs.items()})
     return dict(max_abs_err=max(errs.values()), ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 tiles=ntiles, plain_tiles=nsub, ms_on_plain_tiles=sub_ms,
-                three_march_ops_ms=design_ops_ms)
+                ms_without_state=no_state_ms, two_march_ops_ms=design_ops_ms)
 
 
 def main() -> int:
@@ -604,8 +653,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     loop_launches = flagship_loop(dev)
     torch.cuda.empty_cache()
-    args, boxes, samples, k = flagship_kernel(mi, dev)
-    kb = flagship_kernel_bwd(args, boxes, samples, dev)
+    args, state, plain_state, boxes, samples, k = flagship_kernel(mi, dev)
+    kb = flagship_kernel_bwd(args, state, plain_state, boxes, samples, dev)
 
     src = "ava256_tpu_torch/csrc/"
     table = {"kernels": [
@@ -615,19 +664,27 @@ def main() -> int:
              launches_render=render_launches, launches_train=train_launches[0],
              launches_loop=loop_launches[0], max_abs_err=max(small_err, k["max_abs_err"]),
              ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
-             library_ms=None),
+             library_ms=None,
+             # ms is the kernel as a render calls it; a training step also asks
+             # for the rays' saturation state
+             ms_with_state=k["ms_with_state"]),
         dict(name="mvp_march_bwd", route="cuda", source=src + "mvp_march_bwd.cu",
              replaces="ava256_tpu/ops/raymarch_pallas.py:908",
              launches=train_launches[1] + loop_launches[1], launches_train=train_launches[1],
              launches_loop=loop_launches[1],
+             # launches that were handed the forward's saved state (all of them)
+             launches_with_state=train_launches[2] + loop_launches[2],
              max_abs_err=max(small_bwd_err, kb["max_abs_err"]), ms=kb["ms"],
              plain_ms=kb["plain_ms"], bound_ms=kb["bound_ms"], bound_by=kb["bound_by"],
              library_ms=None,
-             # ms is the kernel on all tiles; plain_ms is the plain version on
-             # plain_tiles of them, ms_on_plain_tiles the kernel on the same
+             # ms is the kernel on all tiles with the forward's saved state, as a
+             # training step calls it, ms_without_state with the forward kernel
+             # run first for it; plain_ms is the plain version on plain_tiles
+             # of the tiles, ms_on_plain_tiles the kernel on the same
              tiles=kb["tiles"], plain_tiles=kb["plain_tiles"],
              ms_on_plain_tiles=kb["ms_on_plain_tiles"],
-             three_march_ops_ms=kb["three_march_ops_ms"])]}
+             ms_without_state=kb["ms_without_state"],
+             two_march_ops_ms=kb["two_march_ops_ms"])]}
     log("done", seconds=round(time.perf_counter() - t_start, 3), ms_per_forward=fwd_ms,
         ms_per_train_step=step_ms)
     print(json.dumps(table))

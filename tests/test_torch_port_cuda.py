@@ -15,7 +15,12 @@ plain version's fp32 operations in the same order (built without FMA
 contraction); what remains is ulp-level ``expf`` and division rounding. The
 backward kernel sums over rays, rows and tiles with floating-point atomics, in
 an order that changes from run to run: its gradients are held to
-max |d| <= BWD_TOL * max |ref| and cosine > 0.99999.
+max |d| <= BWD_TOL * max |ref| and cosine > 0.99999. The forward kernel's
+second output, the rays' saturation state, is held to the forward tolerance,
+and the backward kernel must give the same gradients (to BWD_TOL) whether it
+is handed that state or has the wrapper run the forward kernel for it. A
+trilinear corner outside the box reads zero in the kernels whatever lies in
+the cell its index is clamped to, inf included.
 """
 
 import numpy as np
@@ -110,3 +115,125 @@ def test_bwd_kernel_matches_plain(card, bs, warp, tile, opaque):
         cos = float((a * b).sum() / torch.sqrt((a * a).sum() * (b * b).sum()))
         print(f"bs={bs} warp={warp} {name}: max|d|/max|ref| {err:.3g} cos {cos:.8f}")
         assert err <= BWD_TOL and cos > 0.99999, (name, err, cos)
+
+
+def _tile_args(s, dev, tile, max_hit, nbuf=64, opaque=False):
+    """The arguments of ``rc.march_tiles`` for a scene, culled as the op culls."""
+    t = {k: torch.from_numpy(np.array(v)).to(dev) for k, v in s.items()
+         if isinstance(v, np.ndarray)}
+    if opaque:
+        t["template"][..., 3] *= 30.0
+    dt = float(s["stepsize"])
+    tmm = t["tminmax"]
+    tmm = torch.stack([tmm[..., 0], torch.minimum(tmm[..., 1], tmm[..., 0] + nbuf * dt)], -1)
+    n, K = t["primpos"].shape[:2]
+    bs = t["template"].shape[2]
+    t_o, t_d, t_mm, gid, valid, _, _ = rc.tile_and_cull(
+        t["raypos"], t["raydir"], tmm, t["primpos"], t["primscale"],
+        torch.ones((n, K), device=dev), tile, max_hit, dt)
+    scal = rc.candidate_affines(t["primpos"], rodrigues(t["primrvec"]), t["primscale"], gid,
+                                valid)
+    wrp = t["warp"].reshape(n * K, bs, bs, bs, 3).contiguous() if "warp" in t else None
+    return (gid.to(torch.int32).contiguous(), scal, t_o, t_d, t_mm,
+            t["template"].reshape(n * K, bs, bs, bs, 4).contiguous(), wrp, dt, 6.5, 8.0, nbuf)
+
+
+def _assert_grads(got, ref, what):
+    for name, a, b in zip(("d_template", "d_warp", "d_affine"), got, ref):
+        if b is None:
+            assert a is None
+            continue
+        a, b = a.cpu().double(), b.cpu().double()
+        assert torch.isfinite(a).all() and float(b.abs().max()) > 0, (what, name)
+        err = float((a - b).abs().max() / b.abs().max())
+        cos = float((a * b).sum() / torch.sqrt((a * a).sum() * (b * b).sum()))
+        assert err <= BWD_TOL and cos > 0.99999, (what, name, err, cos)
+
+
+@pytest.mark.parametrize("bs,warp,tile,opaque", [
+    (8, False, 16, True), (8, True, 8, False), (4, False, 16, False), (2, False, 8, True),
+])
+def test_state_and_backward_with_state(card, bs, warp, tile, opaque):
+    s = raymarch_scene(n=2, h=37, w=35, k3=3, bs=bs, warp=warp, seed=bs)
+    cpu = _tile_args(s, "cpu", tile, 27, opaque=opaque)
+    dev = _tile_args(s, card, tile, 27, opaque=opaque)
+    ref_out, ref_state = rc.march_tiles_plain(*cpu, with_state=True)
+    before = rc.march_tiles_kernel.launches
+    out, state = rc.march_tiles(*dev, with_state=True)
+    assert rc.march_tiles_kernel.launches == before + 1
+    assert torch.equal(rc.march_tiles(*dev), out)  # the state output leaves RGBA alone
+    np.testing.assert_allclose(out.cpu().numpy(), ref_out.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(state.cpu().numpy(), ref_state.numpy(), rtol=1e-5, atol=1e-5)
+    if opaque:
+        assert float(ref_state[:, 3].max()) > 0  # some ray saturates
+
+    g = torch.from_numpy(np.random.RandomState(1).randn(*ref_out.shape).astype(np.float32))
+    gid, scal, t_o, t_d, t_mm, *rest = dev
+    counts = (rc.march_tiles_bwd_kernel.launches, rc.march_tiles_bwd_kernel.launches_with_state,
+              rc.march_tiles_kernel.launches)
+    with_state = rc.march_tiles_bwd(gid, scal, t_o, t_d, t_mm, g.to(card), *rest, state=state)
+    assert rc.march_tiles_kernel.launches == counts[2]  # no second forward march
+    without = rc.march_tiles_bwd(gid, scal, t_o, t_d, t_mm, g.to(card), *rest)
+    torch.cuda.synchronize()
+    assert rc.march_tiles_bwd_kernel.launches == counts[0] + 2
+    assert rc.march_tiles_bwd_kernel.launches_with_state == counts[1] + 1
+    assert rc.march_tiles_kernel.launches == counts[2] + 1  # the wrapper ran it for the state
+    gid, scal, t_o, t_d, t_mm, *rest = cpu
+    plain = rc.march_tiles_bwd_plain(gid, scal, t_o, t_d, t_mm, g, *rest, state=ref_state)
+    _assert_grads(with_state, plain, "with state")
+    _assert_grads(without, plain, "without state")
+    with pytest.raises(ValueError, match="state must be"):
+        rc.march_tiles_bwd(*dev[:5], g.to(card), *dev[5:], state=state[:-1].contiguous())
+    with pytest.raises(ValueError, match="state: need a contiguous float32"):
+        rc.march_tiles_bwd(*dev[:5], g.to(card), *dev[5:], state=state.cpu())
+
+
+@pytest.mark.parametrize("max_hit,k3,tile", [(128, 6, 16), (40, 4, 8), (1, 3, 8)])
+def test_kernels_take_any_max_hit(card, max_hit, k3, tile):
+    """max_hit 128 (the largest the repo's configurations use), one that is
+    no multiple of 32, and a single candidate."""
+    s = raymarch_scene(n=1, h=33, w=31, k3=k3, bs=4, warp=False, seed=k3)
+    mask = torch.ones(1, k3 ** 3)
+    g = torch.from_numpy(np.random.RandomState(1).randn(1, 33, 31, 4).astype(np.float32))
+    kw = dict(fadescale=6.5, fadeexp=8.0, tile=tile, max_hit=max_hit, nbuf=64)
+    ref_out, ref = _op_grads(s, "cpu", mask, g, kw)
+    out, got = _op_grads(s, card, mask, g, kw)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out.cpu().numpy(), ref_out.numpy(), rtol=1e-5, atol=1e-5)
+    for name, a, b in zip(GRAD_NAMES, got, ref):
+        if b is None:
+            continue
+        a, b = a.cpu().double(), b.double()
+        assert float(b.abs().max()) > 0, name
+        err = float((a - b).abs().max() / b.abs().max())
+        assert err <= BWD_TOL, (name, err)
+
+
+def test_cell_outside_the_box_is_not_read(card):
+    """A box warped wholly out of its template, the template all inf: every
+    corner of its samples lies outside and reads zero, so the kernels give what
+    they give with a zero template there, and what the plain versions give."""
+    s = raymarch_scene(n=2, h=37, w=35, k3=3, bs=4, warp=True, seed=4)
+    args = _tile_args(s, card, 8, 27)
+    box = int(torch.mode(args[0].flatten()).values)
+    outs = []
+    for fill in (float("inf"), 0.0):
+        gid, scal, t_o, t_d, t_mm, tpl, wrp, *rest = args
+        tpl, wrp = tpl.clone(), wrp.clone()
+        tpl[box], wrp[box] = fill, 3.0
+        out, state = rc.march_tiles(gid, scal, t_o, t_d, t_mm, tpl, wrp, *rest, with_state=True)
+        g = torch.from_numpy(np.random.RandomState(1).randn(*out.shape).astype(np.float32))
+        grads = rc.march_tiles_bwd(gid, scal, t_o, t_d, t_mm, g.to(card), tpl, wrp, *rest,
+                                   state=state)
+        outs.append((out, state, grads, tpl, wrp))
+    (out, state, grads, tpl, wrp), (out0, state0, grads0, _, _) = outs
+    assert bool(torch.isfinite(out).all()) and float(out[:, 3].max()) > 0.5
+    assert torch.equal(out, out0) and torch.equal(state, state0)
+    _assert_grads(grads, grads0, "inf against zero template")
+    cpu = tuple(x.cpu() if torch.is_tensor(x) else x for x in
+                (*args[:5], tpl, wrp, *args[7:]))
+    ref, ref_state = rc.march_tiles_plain(*cpu, with_state=True)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(state.cpu().numpy(), ref_state.numpy(), rtol=1e-5, atol=1e-5)
+    plain = rc.march_tiles_bwd_plain(*cpu[:5], g, *cpu[5:], state=ref_state)
+    _assert_grads(grads, plain, "inf template against plain")
