@@ -14,10 +14,16 @@ layout and never imports it:
   first use);
 - ``models``  — encoders, VAE bottleneck, decoders, assembler, color
   calibration, background model, full autoencoder;
-- ``data``    — the synthetic dataset and topology, device-resident
-  conditioning tables;
-- ``train``   — losses, optimizer and checkpoints, the train step, the loop
-  (``python -m ava256_tpu_torch.train.loop``);
+- ``data``    — the synthetic dataset and topology, the camera hold-out,
+  the sharded loader and device prefetch, device-resident conditioning
+  tables;
+- ``geometry`` — the topology ``.obj`` and its UV barycentric maps;
+- ``train``   — losses, optimizer and checkpoints, the train step, the loop,
+  image metrics, step timing and traces;
+- ``cli``     — the entry points users run
+  (``python -m ava256_tpu_torch.cli.{train,eval,render,generate_id_cond}``);
+- ``config`` / ``utils`` — YAML configs with dotted overrides, PNG strips
+  and logging;
 - ``factory`` / ``convert`` / ``render`` / ``flagship`` — model construction,
   flax weight and train-state conversion, frame decoding, the flagship
   configuration's numbers.

@@ -3,5 +3,8 @@
 #
 # This source code is licensed under the license found in the
 # LICENSE file in the root directory of this source tree.
+from ava256_tpu_torch.data.dataset import (  # noqa: F401
+    CameraSplit, last_n_camindices, none_collate)
+from ava256_tpu_torch.data.loader import ShardedLoader, device_prefetch  # noqa: F401
 from ava256_tpu_torch.data.synthetic import (  # noqa: F401
-    SyntheticDataset, none_collate, synthetic_uvdata)
+    SyntheticDataset, synthetic_uvdata, write_topology_obj)

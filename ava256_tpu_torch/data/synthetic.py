@@ -6,19 +6,30 @@
 """Synthetic capture data, numpy only: the port's own copy of
 ``ava256_tpu.data.synthetic.SyntheticDataset`` (deterministic random
 subjects: a per-identity textured ellipsoid pulsing with the frame index,
-ray-traced from look-at cameras ~1.1 m away, volradius 256), plus
-``none_collate`` and the synthetic flagship-sized topology used when no
-face topology asset is present.
+ray-traced from look-at cameras ~1.1 m away, volradius 256), the synthetic
+flagship-sized topology used where no face topology asset is needed, a
+topology ``.obj`` over the dataset's own vertices for the entry points'
+``assets=`` directory, and a small raymarch scene for the kernel tests.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from ava256_tpu_torch.data.dataset import none_collate  # noqa: F401  (re-exported)
+
 BASE_AXES = np.array([90.0, 120.0, 100.0], np.float32)
 LIGHT = np.array([0.40824829, 0.40824829, 0.81649658], np.float32)  # normalized
+
+
+def _ellipsoid_verts(rng: np.random.RandomState, nverts: int) -> np.ndarray:
+    """Unit directions -> head-sized ellipsoid (world units; volradius=256)."""
+    pts = rng.randn(nverts, 3).astype(np.float32)
+    pts /= np.linalg.norm(pts, axis=1, keepdims=True)
+    return pts * BASE_AXES
 
 
 def _lookat_camera(rng: np.ndarray, radius: float) -> Dict[str, np.ndarray]:
@@ -76,10 +87,7 @@ class SyntheticDataset:
 
         rng = np.random.RandomState(seed)
         if base_verts is None:
-            # Unit directions -> head-sized ellipsoid (world units; volradius=256)
-            pts = rng.randn(nverts, 3).astype(np.float32)
-            pts /= np.linalg.norm(pts, axis=1, keepdims=True)
-            base_verts = pts * BASE_AXES
+            base_verts = _ellipsoid_verts(rng, nverts)
         self.base_verts = base_verts.astype(np.float32)
         self.nverts = self.base_verts.shape[0]
         self._dirs = self.base_verts / np.maximum(
@@ -186,11 +194,17 @@ class SyntheticDataset:
 
     # ---- dataset interface ----
 
+    def get_allcameras(self) -> List[int]:
+        return list(range(self.ncams))
+
     def get_neutral_conditioning(self, ident: int) -> Dict[str, np.ndarray]:
         return {
             "neut_avgtex": self._norm_tex[ident],
             "neut_verts": self._norm_neut_verts[ident],
         }
+
+    def get_img_size(self):
+        return (self.height, self.width)
 
     def conditioning_tables(self) -> Dict[str, Dict[str, np.ndarray]]:
         """Device-cacheable batch fields (see data/cond_cache.py): the
@@ -219,6 +233,10 @@ class SyntheticDataset:
 
     def __len__(self) -> int:
         return self.nident * self.ncams * self.nframes
+
+    def item_camindex(self, idx: int) -> int:
+        """Camera index of item ``idx`` without fetching it (split support)."""
+        return (idx // self.nident) % self.ncams
 
     def __getitem__(self, idx: int) -> Dict[str, Any]:
         ident = idx % self.nident
@@ -252,23 +270,6 @@ class SyntheticDataset:
         )
 
 
-def none_collate(items: List[Optional[Dict[str, Any]]]) -> Optional[Dict[str, Any]]:
-    """Stack dict items into a batch, dropping failed (None) samples."""
-    items = [x for x in items if x is not None]
-    if not items:
-        return None
-    out: Dict[str, Any] = {}
-    for k in items[0]:
-        vals = [it[k] for it in items]
-        if isinstance(vals[0], np.ndarray) or np.isscalar(vals[0]) or isinstance(
-            vals[0], (np.integer, np.floating, int, float, bool)
-        ):
-            out[k] = np.stack([np.asarray(v) for v in vals])
-        else:
-            out[k] = vals
-    return out
-
-
 def synthetic_uvdata(resolution: int, nverts: int = 7306, nfaces: int = 14000,
                      seed: int = 0) -> Dict[str, np.ndarray]:
     """A random topology with the flagship's vertex count, in the layout of
@@ -282,6 +283,29 @@ def synthetic_uvdata(resolution: int, nverts: int = 7306, nfaces: int = 14000,
         "uv_tri": rng.randint(0, nverts, size=(nfaces, 3)).astype(np.int32),
         "tri": rng.randint(0, nverts, size=(nfaces, 3)).astype(np.int32),
     }
+
+
+def write_topology_obj(path, nverts: int = 7306, seed: int = 0) -> Path:
+    """Write a topology ``.obj`` over the vertices ``SyntheticDataset(nverts=,
+    seed=)`` draws when it is given no ``base_verts`` (so the vertex count
+    matches the dataset's): UVs from a spherical map of the vertices
+    (azimuth, height), faces from a Delaunay triangulation of the UVs, one
+    texcoord per vertex. Returns the path. The entry points read
+    ``{assets}/face_topology.obj``: write it there."""
+    from scipy.spatial import Delaunay
+
+    verts = _ellipsoid_verts(np.random.RandomState(seed), nverts)
+    d = verts / BASE_AXES
+    uv = np.stack([np.arctan2(d[:, 0], d[:, 2]) / (2 * np.pi) + 0.5,
+                   np.clip(d[:, 1], -1.0, 1.0) * 0.5 + 0.5], axis=-1)
+    faces = Delaunay(uv).simplices + 1  # obj indices are 1-based
+    lines = [f"v {x:.6f} {y:.6f} {z:.6f}" for x, y, z in verts]
+    lines += [f"vt {u:.6f} {v:.6f}" for u, v in uv]
+    lines += [f"f {a}/{a} {b}/{b} {c}/{c}" for a, b, c in faces]
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text("\n".join(lines) + "\n")
+    return path
 
 
 def raymarch_scene(n: int = 2, h: int = 33, w: int = 33, k3: int = 3, bs: int = 8,

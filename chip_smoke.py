@@ -27,10 +27,29 @@ Phases (each prints one line; any failure exits non-zero):
    weights; one warm-up step (running_avg_scale, ground-truth geometry,
    residuals off), three normal steps on different batches, a checkpoint
    saved before the last of them, restored, and that step taken again;
-6. the training loop's entry point, train.loop.run (what ``python -m
-   ava256_tpu_torch.train.loop`` calls), on the same configuration: two steps
-   from scratch into a temporary directory, then a second call that finds
-   the checkpoint there, resumes and takes one more;
+6. the training entry point, ``cli.train.main`` (what ``python -m
+   ava256_tpu_torch.cli.train`` runs) on configs/config-synthetic-flagship.yaml
+   with a topology .obj written into a temporary ``assets=`` directory: two
+   steps from scratch (step 1 traced by torch.profiler), then a second call
+   that finds the checkpoint, resumes and takes one more. Checked: one launch
+   of each kernel per step, the backward handed the forward's state, the
+   device tables and lean batches handed to every step, no training batch
+   from the held-out cameras 8 and 9, the resume, finite losses, changed
+   parameters, progress_0.png and x-id/progress_0.png of the expected sizes,
+   the trace and timesinfo_r0.npy; printed: the UV build's seconds, the
+   progress render's ms, each step's StepTimer ms (each is the first of its
+   call or traced), and the traced step's device-busy share (summed kernel
+   time over the step's wall time; the profiler slows the host's launches,
+   so this is a lower bound);
+6b. the inference entry points on that run's checkpoint: ``cli.eval
+   --holdout-cameras 2 --num-items 4`` (finite psnr_db, ssim, lpips_rf on the
+   held-out split), ``cli.render --num-frames 2`` (two PNGs) and
+   ``cli.generate_id_cond`` (one pickle per identity);
+6c. steady steps of the training entry point: ``cli.train`` from that
+   checkpoint to step 10 with the warm-up switches on up to step 6 and step
+   7 traced; printed: the StepTimer p50 of untraced steps that are not the
+   first of their call, warm-up and normal, and a normal step's device-busy
+   share (the traced step's kernel time over the untraced steps' wall time);
 7. forward kernel vs plain on the flagship scene, its second output (the
    rays' saturation state, which the training step saves for the backward)
    included, with the kernel's time with and without that output, the plain
@@ -64,6 +83,8 @@ from __future__ import annotations
 
 import json
 import logging
+import os
+import pickle
 import re
 import subprocess
 import sys
@@ -74,8 +95,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ava256_tpu_torch.cli import eval as cli_eval
+from ava256_tpu_torch.cli import generate_id_cond as cli_idc
+from ava256_tpu_torch.cli import render as cli_render
+from ava256_tpu_torch.cli import train as cli_train
+from ava256_tpu_torch.data.loader import Uploader
 from ava256_tpu_torch.data.synthetic import (
-    SyntheticDataset, none_collate, raymarch_scene, synthetic_uvdata)
+    SyntheticDataset, none_collate, raymarch_scene, synthetic_uvdata, write_topology_obj)
 from ava256_tpu_torch.factory import get_autoencoder
 from ava256_tpu_torch.flagship import FLAGSHIP  # configs/config-synthetic-flagship.yaml
 from ava256_tpu_torch.ops import raymarch_cuda as rc
@@ -83,6 +109,7 @@ from ava256_tpu_torch.ops.cuda_lib import build_all
 from ava256_tpu_torch.ops.math3d import rodrigues
 from ava256_tpu_torch.render import BATCH_MODEL_KEYS, decode
 from ava256_tpu_torch.train import loop
+from ava256_tpu_torch.train.profiling import TRACE_FILE, StepTimer
 from ava256_tpu_torch.train.state import (
     TrainState, latest_checkpoint_step, make_optimizer, restore_checkpoint, save_checkpoint)
 from ava256_tpu_torch.train.step import make_train_step
@@ -242,11 +269,6 @@ def small_scenes(dev: torch.device) -> float:
 # ---------------------------------------------------------------------------
 
 
-def to_device(batch, dev):
-    return {k: torch.as_tensor(np.asarray(v)).to(dev) for k, v in batch.items()
-            if k in BATCH_MODEL_KEYS or k in ("idindex", "camindex", "image")}
-
-
 def flagship_render(dev: torch.device):
     f = FLAGSHIP
     t0 = time.perf_counter()
@@ -258,7 +280,9 @@ def flagship_render(dev: torch.device):
         raymarch_options={"tile": f["tile"], "max_hit": f["max_hit"]}, device=dev, seed=0)
     model.eval()
     bsz = f["batch"]
-    batches = [to_device(none_collate([ds[b * f["nident"] + i] for i in range(bsz)]), dev)
+    upload = Uploader(dev)
+    batches = [upload.now(loop.to_model_batch(none_collate([ds[b * f["nident"] + i]
+                                                            for i in range(bsz)])))
                for b in range(4)]
     cross = [ds.get_neutral_conditioning((i + 1) % f["nident"]) for i in range(bsz)]
     cross_tex = torch.from_numpy(np.stack([c["neut_avgtex"] for c in cross])).to(dev)
@@ -430,35 +454,186 @@ def flagship_train(model, ds, batches, dev: torch.device):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the training loop's entry point
+# phase 6: the training entry point; phase 6b: the inference entry points
 # ---------------------------------------------------------------------------
 
+FLAGSHIP_YAML = "configs/config-synthetic-flagship.yaml"
 
-def flagship_loop(dev: torch.device):
-    lines = []
-    handler = logging.Handler(logging.INFO)
-    handler.emit = lambda record: lines.append(record.getMessage())
-    loop.logger.addHandler(handler)
-    loop.logger.setLevel(logging.INFO)
+
+class LogLines(logging.Handler):
+    """Collects the messages of the root logger while it is attached."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        logging.getLogger().addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger().removeHandler(self)
+
+
+def png_size(path) -> tuple:
+    """(height, width, channels) of an 8-bit non-interlaced PNG, after checking
+    every chunk's CRC and that the image data inflates to its size."""
+    import struct
+    import zlib
+
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    pos, idat, hdr = 8, b"", None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        crc, = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(tag + body) & 0xFFFFFFFF != crc:
+            raise AssertionError(f"{path}: bad CRC in {tag}")
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, ctype = hdr[:4]
+    c = {0: 1, 2: 3, 6: 4}[ctype]
+    if depth != 8 or len(zlib.decompress(idat)) != h * (1 + w * c):
+        raise AssertionError(f"{path}: image data does not match its header")
+    return h, w, c
+
+
+def trace_busy(path) -> dict:
+    """From a torch.profiler Chrome trace of one train step: the step's wall
+    ms (its "train_step" annotation), the summed kernel and copy ms, the
+    device's idle time inside the step split into gaps under and over 1 ms,
+    the five longest gaps with the host op running in their middle, the
+    host's CUDA runtime calls, and the five kernels that took most time."""
+    events = [e for e in json.loads(Path(path).read_text())["traceEvents"] if e.get("ph") == "X"]
+    step = [e for e in events if e.get("name") == "train_step"
+            and e.get("cat") == "user_annotation"]
+    if not step:
+        raise AssertionError(f"{path}: no train_step annotation in the trace")
+    t0, t1 = step[0]["ts"], step[0]["ts"] + step[0]["dur"]
+    device = sorted((e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")),
+                    key=lambda e: e["ts"])
+    kernels = [e for e in device if e["cat"] == "kernel"]
+    runtime = [e for e in events if e.get("cat") == "cuda_runtime"]
+    gaps, busy_to = [], t0
+    for e in device + [dict(ts=t1, dur=0)]:  # idle gaps between device activity
+        if min(e["ts"], t1) > busy_to:
+            gaps.append((busy_to, min(e["ts"], t1)))
+        busy_to = max(busy_to, e["ts"] + e["dur"])
+    small = sum(b - a for a, b in gaps if b - a < 1e3)
+    large = sum(b - a for a, b in gaps if b - a >= 1e3)
+    host_ops = [e for e in events if e.get("cat") in ("cpu_op", "cuda_runtime")]
+
+    def host_at(t):
+        """The innermost host op running at time t (what the host was doing)."""
+        live = [e for e in host_ops if e["ts"] <= t < e["ts"] + e["dur"]]
+        return min(live, key=lambda e: e["dur"])["name"] if live else "python"
+
+    longest = sorted(gaps, key=lambda g: g[0] - g[1])[:5]
+    by_name = {}
+    for e in kernels:
+        by_name[e["name"][:60]] = by_name.get(e["name"][:60], 0.0) + e["dur"] / 1e3
+    launches = [e for e in runtime if "Launch" in e["name"]]
+    return dict(
+        step_ms=step[0]["dur"] / 1e3, kernels=len(kernels),
+        kernel_ms=sum(e["dur"] for e in kernels) / 1e3,
+        copy_ms=sum(e["dur"] for e in device if e["cat"] != "kernel") / 1e3,
+        idle_gaps_under_1ms_ms=small / 1e3, idle_gaps_over_1ms_ms=large / 1e3,
+        runtime_calls=len(runtime), runtime_ms=sum(e["dur"] for e in runtime) / 1e3,
+        launch_calls=len(launches), launch_ms=sum(e["dur"] for e in launches) / 1e3,
+        longest_gaps=[(round((b - a) / 1e3, 3), host_at((a + b) / 2)) for a, b in longest],
+        top_kernels=[(k, round(v, 3)) for k, v in
+                     sorted(by_name.items(), key=lambda kv: -kv[1])[:5]])
+
+
+class Watched:
+    """While entered, ``loop.run``'s steps and step timers are watched: each
+    step's launches (host-side counters) and its batch's index tensors are
+    kept, and read only after the run, so the watch adds no device sync
+    inside the timed step; each StepTimer is kept for its per-step times."""
+
+    def __init__(self):
+        self.steps, self.timers = [], []  # (idindex, camindex, launches) per step
+
+    def __enter__(self):
+        make, steps, timers = loop.make_train_step, self.steps, self.timers
+
+        def counting_make_train_step(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def counted(state, batch, **kw):
+                if kw.get("cond") is None or "avgtex" in batch:
+                    raise AssertionError("loop: the step was not handed the device tables and "
+                                         "a lean batch")
+                before = march_launches()
+                out = step(state, batch, **kw)
+                steps.append((batch["idindex"], batch["camindex"],
+                              tuple(b - a for a, b in zip(before, march_launches()))))
+                return out
+
+            return counted
+
+        class KeptTimer(StepTimer):
+            def __init__(self):
+                super().__init__()
+                timers.append(self)
+
+        self.saved = loop.make_train_step, loop.StepTimer
+        loop.make_train_step, loop.StepTimer = counting_make_train_step, KeptTimer
+        return self
+
+    def __exit__(self, *exc):
+        loop.make_train_step, loop.StepTimer = self.saved
+        self.steps[:] = [(i.tolist(), c.tolist(), n) for i, c, n in self.steps]
+
+    def ms(self, call: int) -> list:
+        """StepTimer ms of every step of the call-th run."""
+        return [round(t * 1e3, 3) for t in self.timers[call].times]
+
+    def launches(self) -> tuple:
+        return tuple(sum(s[2][i] for s in self.steps) for i in range(3))
+
+
+def flagship_loop(dev: torch.device, work: Path, train_ms_per_step: float):
+    """cli.train on the flagship yaml: 2 steps from scratch (step 1 traced),
+    then a second call that resumes and takes one more."""
+    assets, run_dir = work / "assets", work / "run"
+    write_topology_obj(assets / "face_topology.obj")
+    argv = ["--config", FLAGSHIP_YAML, "--device", str(dev), f"assets={assets}",
+            f"progress.output_path={run_dir}", "progress.profile_at=1"]
+    ckpt_dir = run_dir / "checkpoints"
     reset_march_launches()  # this path starts here
     t0 = time.perf_counter()
-    try:
-        with tempfile.TemporaryDirectory() as out:
-            ckpt_dir = Path(out) / "checkpoints"
-            state = loop.run(FLAGSHIP, out=out, steps=2, device=dev)
-            if state.step != 2 or latest_checkpoint_step(ckpt_dir) != 2:
-                raise AssertionError(f"loop: step {state.step} after a run to step 2")
-            kept = [p.detach().clone() for p in state.model.parameters()]
-            del state
-            state = loop.run(FLAGSHIP, out=out, steps=3, device=dev)
-            if state.step != 3 or latest_checkpoint_step(ckpt_dir) != 3:
-                raise AssertionError(f"loop: step {state.step} after resuming to step 3")
-    finally:
-        loop.logger.removeHandler(handler)
+    with LogLines() as log_lines, Watched() as watched:
+        state = cli_train.main(argv + ["train.maxiter=2"])
+        if state.step != 2 or latest_checkpoint_step(ckpt_dir) != 2:
+            raise AssertionError(f"loop: step {state.step} after a run to step 2")
+        kept = [p.detach().clone() for p in state.model.parameters()]
+        if not (run_dir / "timesinfo_r0.npy").is_file():
+            raise AssertionError("loop: no timesinfo_r0.npy")
+        del state
+        state = cli_train.main(argv + ["train.maxiter=3"])
+        if state.step != 3 or latest_checkpoint_step(ckpt_dir) != 3:
+            raise AssertionError(f"loop: step {state.step} after resuming to step 3")
+        timing = np.load(run_dir / "timesinfo_r0.npy", allow_pickle=True).item()
     launches = march_launches()
     seconds = time.perf_counter() - t0  # this path ends here
-    if launches != (3, 3, 3):
-        raise AssertionError(f"loop: kernel launches {launches} in 3 steps")
+    lines, steps = log_lines.lines, watched.steps
+    step_launches = watched.launches()
+    if timing["steps"] != 1 or watched.ms(1) != [round(timing["p50_s"] * 1e3, 3)]:
+        raise AssertionError(f"loop: timesinfo {timing} against the step timer {watched.ms(1)}")
+    if step_launches != (3, 3, 3) or len(steps) != 3:
+        raise AssertionError(f"loop: kernel launches {step_launches} in {len(steps)} steps")
+    cams = sorted({c for s in steps for c in s[1]})
+    if set(cams) & {8, 9}:
+        raise AssertionError(f"loop: a training batch holds a held-out camera: {cams}")
     if not any("Resumed from" in ln and "step 2" in ln for ln in lines):
         raise AssertionError(f"loop: the second call did not resume: {lines}")
     losses = [float(m.group(1)) for ln in lines
@@ -470,8 +645,118 @@ def flagship_loop(dev: torch.device):
         raise AssertionError("loop: non-finite parameters")
     if all(torch.equal(p.detach(), q) for p, q in zip(params, kept)):
         raise AssertionError("loop: the resumed step changed no parameter")
+    f = FLAGSHIP
+    if png_size(run_dir / "progress_0.png") != (f["batch"] * f["height"], 3 * f["width"], 3):
+        raise AssertionError(f"loop: progress_0.png is {png_size(run_dir / 'progress_0.png')}")
+    id0 = steps[0][0][0]
+    ncross = len([i for i in range(min(3, f["nident"])) if i != id0])
+    xid = png_size(run_dir / "x-id" / "progress_0.png")
+    if xid != (f["height"], (2 + ncross) * f["width"], 3):
+        raise AssertionError(f"loop: x-id/progress_0.png is {xid}")
+    busy = trace_busy(run_dir / "profile" / TRACE_FILE)
+    uv_s = [float(m.group(1)) for ln in lines
+            if (m := re.match(r"UV maps at \d+\^2 ready \((\S+) s\)", ln))]
+    render_ms = [float(m.group(1)) for ln in lines
+                 if (m := re.search(r"Progress iter 0: .*\((\S+) ms\)", ln))]
     log("loop", steps=3, resumed_at=2, losses=losses, fwd_launches=launches[0],
-        bwd_launches=launches[1], bwd_with_state=launches[2], seconds=round(seconds, 3))
+        bwd_launches=launches[1], bwd_with_state=launches[2], step_launches=step_launches,
+        train_cameras=cams, seconds=round(seconds, 3))
+    # step 0 and step 2 are the first of their call, step 1 is traced: none
+    # of these is a steady step (see the [loop-steady] phase)
+    log("loop-times", uv_build_s=uv_s[0], uv_cached_s=uv_s[1:], progress_render_ms=render_ms,
+        steptimer_ms_step_0_first=watched.ms(0)[0], steptimer_ms_step_1_traced=watched.ms(0)[1],
+        steptimer_ms_step_2_first=watched.ms(1)[0], train_ms_per_step=round(train_ms_per_step, 3))
+    log("loop-trace", step=1, device_busy_share_traced=busy_share(busy),
+        **{k: round(v, 3) if isinstance(v, float) else v for k, v in busy.items()})
+    return launches
+
+
+def busy_share(busy: dict, wall_ms: float = None):
+    """Summed kernel ms over wall_ms (default: the traced step's own)."""
+    if not busy["kernels"]:
+        return "not measured (no kernel in the trace)"
+    return round(busy["kernel_ms"] / (wall_ms or busy["step_ms"]), 4)
+
+
+LOOP_END = 3  # phase 6's last checkpoint
+STEADY_WARMUP, STEADY_TRACED, STEADY_END = 6, 7, 10
+
+
+def flagship_loop_steady(dev: torch.device, work: Path, train_ms_per_step: float):
+    """cli.train from phase 6's checkpoint (step 3) to step 10 in a new
+    output directory, with the warm-up switches on up to step 6 (the
+    flagship's are on for 100 steps; most of a run is after them): steps 4
+    and 5 are steady warm-up steps, 8 and 9 steady normal steps, step 7 is
+    traced. The device-busy share of a normal step is the traced step's
+    kernel time over the wall time of the untraced normal steps (kernel
+    durations do not depend on the profiler; the host's launches do)."""
+    run_dir = work / "steady"
+    argv = ["--config", FLAGSHIP_YAML, "--device", str(dev), f"assets={work / 'assets'}",
+            f"progress.output_path={run_dir}", f"train.checkpoint={work / 'run' / 'checkpoints'}",
+            f"train.warmup_iters={STEADY_WARMUP}", f"progress.profile_at={STEADY_TRACED}",
+            f"train.maxiter={STEADY_END}"]
+    reset_march_launches()  # this path starts here
+    with Watched() as watched:
+        state = cli_train.main(argv)
+    launches = march_launches()  # this path ends here
+    n = STEADY_END - LOOP_END
+    if state.step != STEADY_END or watched.launches() != (n, n, n) or launches != (n, n, n):
+        raise AssertionError(f"loop-steady: step {state.step}, launches {launches}")
+    if set(c for s in watched.steps for c in s[1]) & {8, 9}:
+        raise AssertionError("loop-steady: a training batch holds a held-out camera")
+    ms = dict(zip(range(LOOP_END, STEADY_END), watched.ms(0)))
+    warm = [ms[i] for i in range(LOOP_END + 1, STEADY_WARMUP)]
+    normal = [ms[i] for i in range(STEADY_TRACED + 1, STEADY_END)]
+    busy = trace_busy(run_dir / "profile" / TRACE_FILE)
+    log("loop-steady", steps=n, steptimer_ms=ms, first=LOOP_END, traced=STEADY_TRACED,
+        warmup_until=STEADY_WARMUP, steptimer_p50_ms_warmup=round(float(np.median(warm)), 3),
+        steptimer_p50_ms_normal=round(float(np.median(normal)), 3),
+        train_ms_per_step=round(train_ms_per_step, 3),
+        device_busy_share_normal=busy_share(busy, float(np.median(normal))),
+        device_busy_share_traced=busy_share(busy), fwd_launches=launches[0],
+        bwd_launches=launches[1], bwd_with_state=launches[2])
+    log("loop-steady-trace", step=STEADY_TRACED,
+        **{k: round(v, 3) if isinstance(v, float) else v for k, v in busy.items()})
+    return launches
+
+
+def flagship_cli(dev: torch.device, work: Path):
+    """cli.eval on the held-out cameras, cli.render and cli.generate_id_cond
+    on the checkpoint of phase 6."""
+    common = ["--config", FLAGSHIP_YAML, "--device", str(dev),
+              "--checkpoint", str(work / "run" / "checkpoints")]
+    opts = ["--opts", f"assets={work / 'assets'}"]
+    reset_march_launches()  # this path starts here
+    t0 = time.perf_counter()
+    with LogLines() as log_lines:
+        result = cli_eval.main(common + ["--holdout-cameras", "2", "--num-items", "4"] + opts)
+        rendered = cli_render.main(common + ["--num-frames", "2", "--output",
+                                             str(work / "renders")] + opts)
+        names = cli_idc.main(common + ["--output", str(work / "id_conds")] + opts)
+    launches = march_launches()
+    seconds = time.perf_counter() - t0  # this path ends here
+    if result["split"] != "heldout_cameras" or result["items"] != 4 or not all(
+            np.isfinite(result[k]) for k in ("psnr_db", "ssim", "lpips_rf")):
+        raise AssertionError(f"cli.eval: {result}")
+    f = FLAGSHIP
+    pngs = sorted((work / "renders").glob("render_*.png"))
+    if rendered != 2 or len(pngs) != 2 or any(
+            png_size(p) != (f["height"], 3 * f["width"], 3) for p in pngs):
+        raise AssertionError(f"cli.render: {rendered} frames, files {pngs}")
+    pkls = sorted((work / "id_conds").glob("*.pkl"))
+    if len(pkls) != f["nident"] or len(names) != f["nident"]:
+        raise AssertionError(f"cli.generate_id_cond: {pkls}")
+    with open(pkls[0], "rb") as fh:
+        id_cond = pickle.load(fh)
+    if id_cond["z_geo"].shape != (1, 4, 4, 16) or not np.isfinite(id_cond["z_geo"]).all():
+        raise AssertionError(f"cli.generate_id_cond: z_geo {id_cond['z_geo'].shape}")
+    if launches != (4 + 2 * 2, 0, 0):  # 4 eval items, 2 frames of 2 decodes
+        raise AssertionError(f"cli: kernel launches {launches}")
+    per_item = [float(m.group(1)) for ln in log_lines.lines
+                if (m := re.search(r"Evaluated \d+ items: (\S+) ms per item", ln))]
+    log("cli", eval=json.dumps(result), eval_ms_per_item=per_item[0], render_pngs=len(pngs),
+        id_conds=len(pkls), fwd_launches=launches[0], bwd_launches=launches[1],
+        seconds=round(seconds, 3))
     return launches
 
 
@@ -631,6 +916,9 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
+    # the entry points' log lines go to stderr (they also set up logging)
+    logging.basicConfig(stream=sys.stderr, level=logging.INFO,
+                        format="%(asctime)s %(name)s %(levelname)s %(message)s")
     smi = nvidia_smi()
     log("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
         torch=torch.__version__, cuda=torch.version.cuda, smi=repr(smi))
@@ -651,7 +939,14 @@ def main() -> int:
     train_launches, step_ms = flagship_train(model, ds, batches, dev)
     del model, batches
     torch.cuda.empty_cache()
-    loop_launches = flagship_loop(dev)
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        os.environ["AVA256_CACHE_DIR"] = str(work / "cache")  # the UV maps' cache
+        loop_launches = flagship_loop(dev, work, step_ms)
+        torch.cuda.empty_cache()
+        cli_launches = flagship_cli(dev, work)
+        torch.cuda.empty_cache()
+        steady_launches = flagship_loop_steady(dev, work, step_ms)
     torch.cuda.empty_cache()
     args, state, plain_state, boxes, samples, k = flagship_kernel(mi, dev)
     kb = flagship_kernel_bwd(args, state, plain_state, boxes, samples, dev)
@@ -660,9 +955,12 @@ def main() -> int:
     table = {"kernels": [
         dict(name="mvp_march_fwd", route="cuda", source=src + "mvp_march_fwd.cu",
              replaces="ava256_tpu/ops/raymarch_pallas.py:831",
-             launches=render_launches + train_launches[0] + loop_launches[0],
+             launches=render_launches + train_launches[0] + loop_launches[0] + cli_launches[0]
+             + steady_launches[0],
              launches_render=render_launches, launches_train=train_launches[0],
-             launches_loop=loop_launches[0], max_abs_err=max(small_err, k["max_abs_err"]),
+             launches_loop=loop_launches[0], launches_cli=cli_launches[0],
+             launches_loop_steady=steady_launches[0],
+             max_abs_err=max(small_err, k["max_abs_err"]),
              ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
              library_ms=None,
              # ms is the kernel as a render calls it; a training step also asks
@@ -670,10 +968,12 @@ def main() -> int:
              ms_with_state=k["ms_with_state"]),
         dict(name="mvp_march_bwd", route="cuda", source=src + "mvp_march_bwd.cu",
              replaces="ava256_tpu/ops/raymarch_pallas.py:908",
-             launches=train_launches[1] + loop_launches[1], launches_train=train_launches[1],
-             launches_loop=loop_launches[1],
+             launches=train_launches[1] + loop_launches[1] + cli_launches[1]
+             + steady_launches[1],
+             launches_train=train_launches[1], launches_loop=loop_launches[1],
+             launches_cli=cli_launches[1], launches_loop_steady=steady_launches[1],
              # launches that were handed the forward's saved state (all of them)
-             launches_with_state=train_launches[2] + loop_launches[2],
+             launches_with_state=train_launches[2] + loop_launches[2] + steady_launches[2],
              max_abs_err=max(small_bwd_err, kb["max_abs_err"]), ms=kb["ms"],
              plain_ms=kb["plain_ms"], bound_ms=kb["bound_ms"], bound_by=kb["bound_by"],
              library_ms=None,

@@ -237,3 +237,61 @@ def test_cell_outside_the_box_is_not_read(card):
     np.testing.assert_allclose(state.cpu().numpy(), ref_state.numpy(), rtol=1e-5, atol=1e-5)
     plain = rc.march_tiles_bwd_plain(*cpu[:5], g, *cpu[5:], state=ref_state)
     _assert_grads(grads, plain, "inf template against plain")
+
+
+# ---------------------------------------------------------------------------
+# the entry points' data path and metrics on the card
+# ---------------------------------------------------------------------------
+
+
+def test_device_prefetch_side_stream_equals_plain_copy(card):
+    """Batches uploaded from pinned memory on a side stream in the feeder
+    thread are bit-equal to a plain ``.to(device)``, also while the consumer's
+    stream is busy, and an abandoned prefetch stops its threads."""
+    import threading
+    import time
+
+    from ava256_tpu_torch.data import ShardedLoader, SyntheticDataset, device_prefetch
+    from ava256_tpu_torch.data.loader import Upload, Uploader
+
+    ds = SyntheticDataset(nident=2, ncams=3, nframes=4, height=64, width=48, texsize=64)
+    loader = ShardedLoader(ds, batch_size=3, num_workers=2, shuffle=False)
+    up = Uploader(card)
+    assert isinstance(up({"x": np.zeros(3, np.float32)}), Upload)
+    busy = torch.randn(2048, 2048, device=card)
+    got = []
+    for batch in device_prefetch(loader, up, depth=2):
+        busy = busy @ busy / 2048.0  # keep the consumer's stream working
+        got.append({k: v.clone() for k, v in batch.items()})
+    ref = [{k: torch.as_tensor(np.asarray(v)).to(card) for k, v in b.items()} for b in loader]
+    assert len(got) == len(ref) == len(loader)
+    for g, r in zip(got, ref):
+        assert g.keys() == r.keys()
+        for k in r:
+            assert torch.equal(g[k], r[k]), k
+    before = set(threading.enumerate())
+    gen = device_prefetch(loader, up, depth=1)
+    first = next(gen)
+    assert torch.equal(first["image"], ref[0]["image"])
+    gen.close()
+    started = [t for t in threading.enumerate() if t not in before]
+    deadline = time.time() + 5
+    while any(t.is_alive() for t in started) and time.time() < deadline:
+        time.sleep(0.02)
+    assert not any(t.is_alive() for t in started)
+    torch.cuda.synchronize()
+
+
+def test_metrics_on_the_card_equal_the_cpu(card):
+    """ssim (fp64 blur) within 1e-5 and lpips (fp32, TF32 off) within 1e-4
+    relative of the same functions on the CPU, at the flagship's image size."""
+    from ava256_tpu_torch.train import metrics
+
+    rng = np.random.RandomState(0)
+    x = (rng.rand(2, 512, 334, 3) * 255).astype(np.float32)
+    y = np.clip(x + rng.randn(*x.shape) * 20, 0, 255).astype(np.float32)
+    cpu = [torch.from_numpy(a) for a in (x, y)]
+    dev = [t.to(card) for t in cpu]
+    for fn, tol in ((metrics.ssim, 1e-5), (metrics.lpips, 1e-4), (metrics.psnr, 1e-6)):
+        a, b = float(fn(*dev)), float(fn(*cpu))
+        assert abs(a - b) <= tol * abs(b), (fn.__name__, a, b)

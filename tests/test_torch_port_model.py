@@ -263,6 +263,17 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         get_autoencoder(synthetic_uvdata(64), ds.vertmean, ds.vertstd, 1, 1, nprims=256,
                         primsize=(16,) * 3)
+    from ava256_tpu_torch.cli import eval as cli_eval
+    from ava256_tpu_torch.cli import generate_id_cond as cli_idc
+    from ava256_tpu_torch.cli import render as cli_render
+    from ava256_tpu_torch.cli import train as cli_train
+
+    config = ["--config", "configs/config-synthetic.yaml"]
+    for main, argv in ((cli_train.main, config), (cli_eval.main, config + ["--checkpoint", "x"]),
+                       (cli_render.main, config + ["--checkpoint", "x", "--output", "/none"]),
+                       (cli_idc.main, config + ["--checkpoint", "x", "--output", "/none"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(argv)
 
 
 def test_port_imports_without_jax():
@@ -273,15 +284,23 @@ def test_port_imports_without_jax():
         "sys.modules['ava256_tpu'] = None\n"
         "sys.modules['optax'] = None\n"
         "sys.modules['orbax'] = None\n"
+        "sys.modules['yaml'] = None\n"  # the port reads YAML itself
+        "sys.modules['PIL'] = None\n"  # and writes PNGs itself
         "import ava256_tpu_torch, ava256_tpu_torch.ops, ava256_tpu_torch.models\n"
         "import ava256_tpu_torch.factory, ava256_tpu_torch.convert, ava256_tpu_torch.render\n"
         "import ava256_tpu_torch.data, ava256_tpu_torch.ops.cuda_lib\n"
         "import ava256_tpu_torch.data.cond_cache, ava256_tpu_torch.flagship\n"
         "import ava256_tpu_torch.train.losses, ava256_tpu_torch.train.state\n"
         "import ava256_tpu_torch.train.step, ava256_tpu_torch.train.loop\n"
+        "import ava256_tpu_torch.config, ava256_tpu_torch.utils, ava256_tpu_torch.geometry\n"
+        "import ava256_tpu_torch.data.dataset, ava256_tpu_torch.data.loader\n"
+        "import ava256_tpu_torch.train.metrics, ava256_tpu_torch.train.profiling\n"
+        "import ava256_tpu_torch.cli.train, ava256_tpu_torch.cli.eval\n"
+        "import ava256_tpu_torch.cli.render, ava256_tpu_torch.cli.generate_id_cond\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'ava256_tpu')\n"
+        "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'ava256_tpu', 'yaml',\n"
+        "                               'PIL')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
     )

@@ -544,41 +544,83 @@ def test_flagship_numbers_equal_yaml():
     assert chip_smoke.FLAGSHIP is FLAGSHIP
 
 
-def test_loop_trains_checkpoints_and_resumes(tmp_path, caplog):
-    """The loop on a tiny configuration: warm-up switches for the first steps,
-    a loss line per step with the learning rate, checkpoints at the cadence
-    and at the end, and a second run that resumes where the first stopped."""
+def _tiny_flagship(tmp_path, *more):
+    """The flagship yaml (2 of 10 cameras held out) reduced to a CPU size."""
+    from ava256_tpu_torch.config import load_config
+    from ava256_tpu_torch.data.synthetic import write_topology_obj
+
+    write_topology_obj(tmp_path / "assets" / "face_topology.obj")
+    return load_config("configs/config-synthetic-flagship.yaml", [
+        f"assets={tmp_path / 'assets'}", f"progress.output_path={tmp_path / 'run'}",
+        "train.nids=2", "data.synthetic_frames=1", "data.synthetic_height=16",
+        "data.synthetic_width=16", "data.synthetic_texsize=64", "model.nprims=256",
+        "model.primsize=16", "train.batchsize=2", "model.raymarch.tile=8",
+        "model.raymarch.max_hit=16", "model.raymarch.nbuf=32", "train.warmup_iters=1",
+        "train.lr_scheduler_iter=2", "train.num_workers=1", *more])
+
+
+def test_loop_trains_checkpoints_and_resumes(tmp_path, caplog, monkeypatch):
+    """The loop on the flagship configuration at a tiny size: warm-up switches
+    for the first steps, a loss line per step with the learning rate,
+    checkpoints at the cadence and at the end, a second run that resumes where
+    the first stopped; every step sees only the training cameras (0-7 of 10)
+    and gets the device conditioning tables with a lean batch."""
     import logging
 
-    cfg = dict(FLAGSHIP, nident=2, ncams=2, nframes=2, height=16, width=16, texsize=64,
-               nprims=256, primsize=16, batch=2, tile=8, max_hit=16, warmup_iters=1,
-               lr_scheduler_iter=2, raymarch_options={"nbuf": 32})
     assert loop.checkpoint_cadence(0, None) == 2000 and loop.checkpoint_cadence(10_000, None) \
         == 20_000 and loop.checkpoint_cadence(5, 3) == 3
+    monkeypatch.setenv("AVA256_CACHE_DIR", str(tmp_path / "cache"))
+    seen = []
+    make = loop.make_train_step
+
+    def recording(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def recorded(state, batch, **kw):
+            seen.append((batch["camindex"].tolist(), kw["cond"], sorted(batch)))
+            return step(state, batch, **kw)
+
+        return recorded
+
+    monkeypatch.setattr(loop, "make_train_step", recording)
+    cfg = _tiny_flagship(tmp_path, "train.maxiter=2", "train.checkpoint_every=1",
+                         "progress.tensorboard.logdir=tb", "progress.tensorboard.log_freq=1")
     with caplog.at_level(logging.INFO, logger="ava256_tpu_torch.train"):
-        state = loop.run(cfg, out=str(tmp_path), steps=2, device="cpu", checkpoint_every=1)
+        state = loop.run(cfg, device="cpu")
     assert state.step == 2
-    ckpts = sorted(p.name for p in (tmp_path / "checkpoints").glob("step_*.pt"))
+    ckpts = sorted(p.name for p in (tmp_path / "run" / "checkpoints").glob("step_*.pt"))
     assert ckpts == ["step_00000002.pt"]
     lines = [r.getMessage() for r in caplog.records if r.getMessage().startswith("Iteration")]
     assert len(lines) == 2 and "lr = 2.00e-04" in lines[0] and "irgbl1 = " in lines[0]
     assert float(state.model.decoder_assembler.adaptwarps.min()) > 0
     caplog.clear()
+    cfg = _tiny_flagship(tmp_path, "train.maxiter=3", "train.checkpoint_every=0")
     with caplog.at_level(logging.INFO, logger="ava256_tpu_torch.train"):
-        state = loop.run(cfg, out=str(tmp_path), steps=3, device="cpu", checkpoint_every=0)
+        state = loop.run(cfg, device="cpu")
     msgs = [r.getMessage() for r in caplog.records]
     assert any(m.startswith("Resumed from") and "step 2" in m for m in msgs)
     lines = [m for m in msgs if m.startswith("Iteration")]
     assert len(lines) == 1 and lines[0].startswith("Iteration 2 ") and "lr = 2.80e-04" in lines[0]
-    assert state.step == 3 and latest_checkpoint_step(tmp_path / "checkpoints") == 3
+    assert state.step == 3 and latest_checkpoint_step(tmp_path / "run" / "checkpoints") == 3
     for p in state.model.parameters():
         assert bool(torch.isfinite(p).all())
+    # the camera hold-out and the device tables
+    assert len(seen) == 3 and all(c < 8 for cams, _, _ in seen for c in cams)
+    for _, cond, keys in seen:
+        assert cond is not None and set(cond) == {"id", "cam", "const"}
+        assert keys == ["camindex", "idindex", "image", "verts"]
+    for name in ("progress_0.png", "x-id/progress_0.png", "timesinfo_r0.npy"):
+        assert (tmp_path / "run" / name).is_file(), name
+    pytest.importorskip("tensorboardX")
+    assert list((tmp_path / "run" / "tb").glob("**/events.out.tfevents.*"))
 
 
-def test_loop_batches_order_resume_and_bounded_retry():
-    """A run resumed at step k draws the batches a run from 0 draws from k on;
-    positions whose items all fail are passed over; a dataset that yields
-    nothing raises instead of spinning."""
+def test_loop_batches_order_resume_and_bounded_retry(tmp_path, monkeypatch):
+    """A loader resumed at batch k draws the batches a loader from 0 draws
+    from k on; batches whose items all fail are passed over; a dataset that
+    yields nothing raises instead of spinning."""
+    from ava256_tpu_torch.data.loader import ShardedLoader, device_prefetch
+
     class Items:
         def __init__(self, bad):
             self.bad = bad
@@ -589,16 +631,40 @@ def test_loop_batches_order_resume_and_bounded_retry():
         def __getitem__(self, i):
             return None if i in self.bad else {"i": np.array(i)}
 
-    def take(it, n):
-        return [next(it)["i"].tolist() for _ in range(n)]
+    def take(loader, n, position=0):
+        loader.set_position(position)
+        out = []
+        while len(out) < n:
+            out += [b["i"].tolist() for b in device_prefetch(loader, lambda b: b)]
+        return out[:n]
 
-    ds = Items(bad=())
-    full = take(loop.batches(ds, 4, 0, seed=5), 7)  # three per epoch
+    full = take(ShardedLoader(Items(()), 4, seed=5), 7)  # three per epoch
     assert sorted(sum(full[:3], [])) == list(range(12)) == sorted(sum(full[3:6], []))
     assert full[:3] != full[3:6]
-    assert take(loop.batches(ds, 4, 2, seed=5), 5) == full[2:]
+    assert take(ShardedLoader(Items(()), 4, seed=5), 5, position=2) == full[2:]
     order = np.random.RandomState(5).permutation(12)
-    holes = take(loop.batches(Items(bad=set(order[:4].tolist())), 4, 0, seed=5), 2)
+    holes = take(ShardedLoader(Items(set(order[:4].tolist())), 4, seed=5), 2)
     assert holes == full[1:3]
+
+    class Broken:
+        """A dataset whose every item fails to load."""
+
+        def __init__(self, ds):
+            self.ds = ds
+
+        def __getattr__(self, name):
+            if name.startswith("__") or "ds" not in self.__dict__:
+                raise AttributeError(name)
+            return getattr(self.ds, name)
+
+        def __len__(self):
+            return len(self.ds)
+
+        def __getitem__(self, i):
+            return None
+
+    monkeypatch.setenv("AVA256_CACHE_DIR", str(tmp_path / "cache"))
+    build = loop.build_dataset
+    monkeypatch.setattr(loop, "build_dataset", lambda cfg: Broken(build(cfg)))
     with pytest.raises(RuntimeError, match="no item"):
-        next(loop.batches(Items(bad=set(range(12))), 4, 0))
+        loop.run(_tiny_flagship(tmp_path, "train.maxiter=2"), device="cpu")
