@@ -9,17 +9,22 @@ subjects: a per-identity textured ellipsoid pulsing with the frame index,
 ray-traced from look-at cameras ~1.1 m away, volradius 256), the synthetic
 flagship-sized topology used where no face topology asset is needed, a
 topology ``.obj`` over the dataset's own vertices for the entry points'
-``assets=`` directory, and a small raymarch scene for the kernel tests.
+``assets=`` directory, the dataset written as captures in the ava-256
+release's on-disk layout (``write_capture``), and a small raymarch scene for
+the kernel tests.
 """
 
 from __future__ import annotations
 
+import json
+import zipfile
 from pathlib import Path
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from ava256_tpu_torch.data.dataset import none_collate  # noqa: F401  (re-exported)
+from ava256_tpu_torch.utils import png_bytes
 
 BASE_AXES = np.array([90.0, 120.0, 100.0], np.float32)
 LIGHT = np.array([0.40824829, 0.40824829, 0.81649658], np.float32)  # normalized
@@ -306,6 +311,89 @@ def write_topology_obj(path, nverts: int = 7306, seed: int = 0) -> Path:
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text("\n".join(lines) + "\n")
     return path
+
+
+CAPTURE_HW = (4096, 2668)  # the release's camera images, height x width
+
+
+def _ply_bytes(verts: np.ndarray) -> bytes:
+    header = (b"ply\nformat binary_little_endian 1.0\n"
+              + f"element vertex {len(verts)}\n".encode()
+              + b"property float x\nproperty float y\nproperty float z\nend_header\n")
+    return header + np.ascontiguousarray(verts, "<f4").tobytes()
+
+
+def write_capture(root, dataset: SyntheticDataset, downsample: int = 8,
+                  image_hw: Tuple[int, int] = CAPTURE_HW) -> Path:
+    """Write every identity of ``dataset`` as one capture in the ava-256
+    release's on-disk layout (see ``data.dataset``) under
+    ``root/{mcd}--{mct}--{sid}/decoder``, and the release's CSV of ids
+    (``mcd,mct,sid``) as ``root/ids.csv``; returns the CSV's path.
+
+    Per capture: ``camera_calibration.json`` with the dataset's cameras, the
+    intrinsics scaled by ``downsample`` (so that a capture dataset at that
+    downsample gives the model the dataset's rays back; every capture has the
+    same camera ids); ``frame_list.csv`` with frame 1 in
+    ``EXP_neutral_peak``; ``image/cam{ID}.zip`` with each render enlarged by
+    nearest neighbour to cover ``image_hw`` and cropped to it (the release's
+    4096 x 2668 by default), as PNG (zlib level 1, filter type 0) stored
+    uncompressed in the zip; ``registration_vertices.zip``
+    with one binary PLY per frame, their mean (``.npy``) and variance;
+    ``uv_image/color.zip`` with the identity's texture per frame, and
+    ``color_mean.png`` / ``color_variance.txt``; ``head_pose.zip`` with
+    identity poses. Frame f (from 1) is the dataset's frame f - 1."""
+    root = Path(root)
+    h, w = image_hw
+    scale = max(-(-h // dataset.height), -(-w // dataset.width))
+    frames = range(1, dataset.nframes + 1)
+    cams = [str(400001 + c) for c in range(dataset.ncams)]
+    intrin = np.array([[dataset._focal, 0.0, dataset.width / 2],
+                       [0.0, dataset._focal, dataset.height / 2],
+                       [0.0, 0.0, 1.0]]) * np.array([[downsample], [downsample], [1.0]])
+    krt = []
+    for cam, c in zip(cams, dataset.cameras):
+        rot = c["camrot"].astype(np.float64)
+        extrin = np.concatenate([rot, -rot @ c["campos"].astype(np.float64)[:, None]], axis=1)
+        krt.append({"cameraId": cam, "K": intrin.T.tolist(), "T": extrin.T.tolist(),
+                    "distortion": [0.0, 0.0, 0.0, 0.0, 0.0]})
+    pose = "\n".join(" ".join(str(v) for v in row) for row in np.eye(4)[:3]) + "\n"
+    rows = ["mcd,mct,sid"]
+    for ident in range(dataset.nident):
+        mcd, mct, sid = "20260101", f"{ident:04d}", f"SYN{ident:03d}"
+        rows.append(f"{mcd},{mct},{sid}")
+        d = root / f"{mcd}--{mct}--{sid}" / "decoder"
+        for sub in ("image", "kinematic_tracking", "uv_image", "head_pose"):
+            (d / sub).mkdir(parents=True, exist_ok=True)
+        (d / "camera_calibration.json").write_text(json.dumps({"KRT": krt}))
+        (d / "frame_list.csv").write_text("seg_id,frame_id\n" + "".join(
+            f"{'EXP_neutral_peak' if f == 1 else 'EXP_free_face'},{f}\n" for f in frames))
+        for cam_idx, cam in enumerate(cams):
+            with zipfile.ZipFile(d / "image" / f"cam{cam}.zip", "w", zipfile.ZIP_STORED) as z:
+                for f in frames:
+                    img = np.clip(np.rint(dataset._render(ident, cam_idx, f - 1)), 0, 255)
+                    big = img.astype(np.uint8).repeat(scale, 0).repeat(scale, 1)[:h, :w]
+                    z.writestr(f"cam{cam}/{f:06d}.png", png_bytes(big, 1))
+        verts = np.stack([dataset._verts(ident, f - 1) for f in frames])
+        mean = verts.mean(axis=0).astype(np.float32)
+        with zipfile.ZipFile(d / "kinematic_tracking" / "registration_vertices.zip", "w") as z:
+            for f, v in zip(frames, verts):
+                z.writestr(f"{f:06d}.ply", _ply_bytes(v))
+        np.save(d / "kinematic_tracking" / "registration_vertices_mean.npy", mean)
+        (d / "kinematic_tracking" / "registration_vertices_variance.txt").write_text(
+            f"{float(np.var(verts - mean)):.6f}\n")
+        tex = np.clip(np.rint(dataset.id_textures[ident] * 255.0), 0, 255).astype(np.uint8)
+        tex_png = png_bytes(tex, 1)
+        with zipfile.ZipFile(d / "uv_image" / "color.zip", "w", zipfile.ZIP_STORED) as z:
+            for f in frames:
+                z.writestr(f"color/{f:06d}.png", tex_png)
+        (d / "uv_image" / "color_mean.png").write_bytes(tex_png)
+        (d / "uv_image" / "color_variance.txt").write_text(f"{float(np.var(tex)):.6f}\n")
+        with zipfile.ZipFile(d / "head_pose" / "head_pose.zip", "w") as z:
+            for f in frames:
+                z.writestr(f"{f:06d}.txt", pose)
+    csv = root / "ids.csv"
+    csv.write_text("\n".join(rows) + "\n")
+    return csv
 
 
 def raymarch_scene(n: int = 2, h: int = 33, w: int = 33, k3: int = 3, bs: int = 8,

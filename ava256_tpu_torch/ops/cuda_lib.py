@@ -3,12 +3,14 @@
 #
 # This source code is licensed under the license found in the
 # LICENSE file in the root directory of this source tree.
-"""Build and load the package's hand-written CUDA kernels.
+"""Build and load the package's hand-written native code.
 
 Each ``csrc/*.cu`` file has a plain C interface. At first use it is compiled
 with ``nvcc`` for ``sm_90a`` into ``ava256_tpu_torch/_build/`` (named by the
-hash of the source and the shared ``csrc/*.cuh`` headers, so an edited source
-rebuilds) and loaded with ``ctypes``.
+hash of the source, the flags and the shared ``csrc/*.cuh`` headers, so an
+edited source rebuilds) and loaded with ``ctypes`` (``CudaLib``). The host
+data library ``csrc/dataio.cpp`` is built the same way with the host C++
+compiler (``HostLib``). A failed build raises with the compiler's output.
 Nothing here runs at import time.
 """
 
@@ -17,11 +19,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
-from typing import Iterable, List, Optional
+from typing import Callable, Iterable, List, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -33,6 +37,7 @@ NVCC_FLAGS = [
     "--fmad=false", "-Xptxas", "-v",
     "-shared", "-Xcompiler", "-fPIC",
 ]
+HOST_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 
 
 def _nvcc() -> str:
@@ -43,8 +48,19 @@ def _nvcc() -> str:
                        "CUDA toolkit (set NVCC or put nvcc on PATH)")
 
 
-class CudaLib:
-    """One kernel source: its build, its loaded library and the build log."""
+def _cxx() -> str:
+    for cand in (os.environ.get("CXX"), shutil.which("g++"), shutil.which("c++")):
+        if cand and shutil.which(cand):
+            return cand
+    raise RuntimeError("no host C++ compiler found for csrc/dataio.cpp (set CXX or put g++ "
+                       "on PATH)")
+
+
+class _Lib:
+    """One source under ``csrc/``: its build, its loaded library and the
+    build log."""
+
+    flags: List[str] = []
 
     def __init__(self, source: str):
         self.source = CSRC / source
@@ -52,11 +68,17 @@ class CudaLib:
         self.build_log = ""
         self.build_seconds = 0.0
 
+    def _compiler(self) -> str:
+        raise NotImplementedError
+
+    def _key(self) -> bytes:
+        """What the build depends on besides the source and the flags."""
+        return b""
+
     @property
     def path(self) -> Path:
-        digest = hashlib.sha1(self.source.read_bytes() + " ".join(NVCC_FLAGS).encode())
-        for header in sorted(CSRC.glob("*.cuh")):  # shared device code
-            digest.update(header.read_bytes())
+        digest = hashlib.sha1(self.source.read_bytes() + " ".join(self.flags).encode())
+        digest.update(self._key())
         return BUILD_DIR / f"lib{self.source.stem}_{digest.hexdigest()[:12]}.so"
 
     def _tmp(self) -> Path:
@@ -67,7 +89,7 @@ class CudaLib:
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         return subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(self._tmp()), str(self.source)],
+            [self._compiler(), *self.flags, "-o", str(self._tmp()), str(self.source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
     def _finish(self, proc: Optional[subprocess.Popen], t0: float) -> None:
@@ -77,7 +99,7 @@ class CudaLib:
         self.build_seconds = time.perf_counter() - t0
         if proc.returncode != 0:
             self._tmp().unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed for {self.source.name}:\n{self.build_log}")
+            raise RuntimeError(f"{proc.args[0]} failed for {self.source.name}:\n{self.build_log}")
         os.replace(self._tmp(), self.path)
 
     def build(self) -> None:
@@ -86,11 +108,29 @@ class CudaLib:
     def lib(self) -> ctypes.CDLL:
         if self._lib is None:
             self.build()
-            lib = ctypes.CDLL(str(self.path))
-            lib.cuda_error_string.argtypes = [ctypes.c_int]
-            lib.cuda_error_string.restype = ctypes.c_char_p
-            self._lib = lib
+            self._lib = self._bind(ctypes.CDLL(str(self.path)))
         return self._lib
+
+    def _bind(self, lib: ctypes.CDLL) -> ctypes.CDLL:
+        """Declare the entry points' argument and result types."""
+        return lib
+
+
+class CudaLib(_Lib):
+    """A CUDA source, built with ``nvcc`` for ``sm_90a``."""
+
+    flags = NVCC_FLAGS
+
+    def _compiler(self) -> str:
+        return _nvcc()
+
+    def _key(self) -> bytes:
+        return b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))  # shared device code
+
+    def _bind(self, lib: ctypes.CDLL) -> ctypes.CDLL:
+        lib.cuda_error_string.argtypes = [ctypes.c_int]
+        lib.cuda_error_string.restype = ctypes.c_char_p
+        return lib
 
     def check(self, err: int, what: str) -> None:
         """Raise on a non-zero cudaError_t returned by a C entry point."""
@@ -99,10 +139,44 @@ class CudaLib:
             raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
 
 
-def build_all(libs: Iterable[CudaLib]) -> None:
-    """Compile every library that is not built yet, one nvcc per source, all
-    started together."""
-    libs: List[CudaLib] = list(libs)
+class HostLib(_Lib):
+    """A C++ source for the host, built with the host compiler and the
+    flags of ``ava256_tpu/native/build.py`` (so both builds of the same
+    arithmetic round alike). ``bind(lib)`` declares its entry points."""
+
+    flags = HOST_FLAGS
+
+    def __init__(self, source: str, bind: Callable[[ctypes.CDLL], None]):
+        super().__init__(source)
+        self._declare = bind
+        self._lock = threading.Lock()
+
+    def _compiler(self) -> str:
+        return _cxx()
+
+    def _key(self) -> bytes:
+        # -march=native builds for this host's processor: a tree copied to
+        # another machine builds its own library
+        try:
+            with open("/proc/cpuinfo", "rb") as f:
+                cpu = b"".join(sorted({ln for ln in f if ln.startswith((b"model name", b"flags"))}))
+        except OSError:
+            cpu = b""
+        return platform.machine().encode() + platform.processor().encode() + cpu
+
+    def lib(self) -> ctypes.CDLL:
+        with self._lock:  # loader threads may ask at once
+            return super().lib()
+
+    def _bind(self, lib: ctypes.CDLL) -> ctypes.CDLL:
+        self._declare(lib)
+        return lib
+
+
+def build_all(libs: Iterable[_Lib]) -> None:
+    """Compile every library that is not built yet, one compiler process per
+    source, all started together."""
+    libs: List[_Lib] = list(libs)
     t0 = time.perf_counter()
     procs = [(lib, lib._start()) for lib in libs]
     for lib, proc in procs:

@@ -32,7 +32,8 @@ import torch
 from ava256_tpu_torch.config import Config
 from ava256_tpu_torch.data.cond_cache import (
     LeanView, cached_field_names, expand_batch, table_nbytes, tables_to_device)
-from ava256_tpu_torch.data.dataset import CameraSplit, last_n_camindices
+from ava256_tpu_torch.data.dataset import (
+    CameraSplit, MultiCaptureDataset, last_n_camindices, train_csv_loader)
 from ava256_tpu_torch.data.loader import ShardedLoader, Uploader, device_prefetch
 from ava256_tpu_torch.data.synthetic import SyntheticDataset
 from ava256_tpu_torch.factory import get_autoencoder
@@ -59,25 +60,29 @@ BACKENDS = {"pallas": "cuda", "reference": "reference"}
 
 
 def build_dataset(cfg: Config, heldout: bool = False):
-    """The configured dataset. ``data.holdout_cameras: N`` reserves the last
-    N cameras: training and rendering iterate the others, evaluation with
-    ``heldout=True`` only those."""
-    if not cfg.data.synthetic:
-        raise NotImplementedError("the capture dataset is not ported yet (ROADMAP Queue 1): "
-                                  "set data.synthetic=true")
-    base_verts = None
-    mesh_bin = Path(cfg.assets) / "021924.bin"
-    if mesh_bin.exists():
-        base_verts = np.fromfile(mesh_bin, dtype=np.float32).reshape(-1, 3)
-    ds = SyntheticDataset(
-        nident=cfg.train.nids,
-        ncams=int(cfg.data.get("synthetic_cams", 4)),
-        nframes=int(cfg.data.get("synthetic_frames", 8)),
-        height=cfg.data.synthetic_height,
-        width=cfg.data.synthetic_width,
-        texsize=cfg.data.synthetic_texsize,
-        base_verts=base_verts,
-    )
+    """The configured dataset: the synthetic one, or the captures of the
+    first ``train.nids`` rows of ``train.data_csv`` under
+    ``train.dataset_dir`` at ``train.downsample``. ``data.holdout_cameras:
+    N`` reserves the last N cameras: training and rendering iterate the
+    others, evaluation with ``heldout=True`` only those."""
+    if cfg.data.synthetic:
+        base_verts = None
+        mesh_bin = Path(cfg.assets) / "021924.bin"
+        if mesh_bin.exists():
+            base_verts = np.fromfile(mesh_bin, dtype=np.float32).reshape(-1, 3)
+        ds = SyntheticDataset(
+            nident=cfg.train.nids,
+            ncams=int(cfg.data.get("synthetic_cams", 4)),
+            nframes=int(cfg.data.get("synthetic_frames", 8)),
+            height=cfg.data.synthetic_height,
+            width=cfg.data.synthetic_width,
+            texsize=cfg.data.synthetic_texsize,
+            base_verts=base_verts,
+        )
+    else:
+        captures, dirs = train_csv_loader(cfg.train.dataset_dir, cfg.train.data_csv,
+                                          cfg.train.nids)
+        ds = MultiCaptureDataset(captures, dirs, downsample=cfg.train.downsample)
     n = int(cfg.data.get("holdout_cameras", 0) or 0)
     if n:
         ds = CameraSplit(ds, last_n_camindices(ds, n), heldout=heldout)
@@ -101,7 +106,7 @@ def build_model(cfg: Config, dataset, uvdata, device, seed: int = 0):
     if backend == "xla":
         raise NotImplementedError(
             "model.raymarch.backend 'xla' (the compacted marcher) is not ported yet "
-            "(ROADMAP Queue 1 item 6); use 'pallas' (the CUDA kernels) or 'reference'")
+            "(ROADMAP Queue 1); use 'pallas' (the CUDA kernels) or 'reference'")
     if backend not in BACKENDS:
         raise ValueError(f"unknown model.raymarch.backend {backend!r}")
     if cfg.model.get("dtype") not in (None, "float32"):

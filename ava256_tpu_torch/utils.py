@@ -27,8 +27,9 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
 
-def write_png(path: str, img: np.ndarray) -> None:
-    """Write a uint8 [H, W], [H, W, 1], [H, W, 3] or [H, W, 4] array as a PNG."""
+def png_bytes(img: np.ndarray, compresslevel: int = 6) -> bytes:
+    """A uint8 [H, W], [H, W, 1], [H, W, 3] or [H, W, 4] array as the bytes
+    of a PNG file (every row with filter type 0, none)."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
         raise ValueError(f"write_png takes uint8, got {img.dtype}")
@@ -37,12 +38,16 @@ def write_png(path: str, img: np.ndarray) -> None:
     if img.ndim != 3 or img.shape[2] not in _COLOR_TYPE:
         raise ValueError(f"write_png takes [H, W] or [H, W, 1|3|4], got {img.shape}")
     h, w, c = img.shape
-    # every row starts with filter type 0 (none)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * c)], axis=1)
-    png = (b"\x89PNG\r\n\x1a\n"
-           + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[c], 0, 0, 0))
-           + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-           + _chunk(b"IEND", b""))
+    return (b"\x89PNG\r\n\x1a\n"
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[c], 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), compresslevel))
+            + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Write a uint8 [H, W], [H, W, 1], [H, W, 3] or [H, W, 4] array as a PNG."""
+    png = png_bytes(img)
     with open(path, "wb") as f:
         f.write(png)
 

@@ -50,6 +50,28 @@ Phases (each prints one line; any failure exits non-zero):
    7 traced; printed: the StepTimer p50 of untraced steps that are not the
    first of their call, warm-up and normal, and a normal step's device-busy
    share (the traced step's kernel time over the untraced steps' wall time);
+6d. the capture-data path (``configs/config-4.yaml``): ``[capture-write]``
+   writes 4 identities of the synthetic dataset as captures in the ava-256
+   release's on-disk layout (``data.synthetic.write_capture``: 4 cameras,
+   3 frames, 4096x2668 camera PNGs (the 512x334 render enlarged x8 by nearest
+   neighbour, cropped; zlib level 1, filter 0), 1024^2 UV textures, PLYs of
+   7,306 vertices) and prints the bytes and seconds; ``[capture-io]`` times
+   one item's fetch on this host (zip read, inflate, unfilter, resize, PLY)
+   and holds the host library's resize against its numpy restatement on one
+   4096x2668 image (at most one level apart); ``[capture-train]`` runs
+   ``cli.train`` on config-4 (batch 4, 512x333 rays, 16,384 primitives of
+   8^3, tile 16, max_hit 128, 4 loader threads) over those captures: 2 steps
+   from scratch, then a resume to step 8 with step 5 traced. Checked: one
+   launch of each kernel per step, the backward handed the forward's state,
+   4 items in every batch and no failed fetch, finite losses, changed
+   parameters, the progress PNGs at the dataset's 512x333; printed: the
+   StepTimer p50 of untraced steps that are not the first of their call
+   (all are warm-up steps: config-4 keeps the switches on for 100), the
+   device-busy share (the traced step's kernel time over that p50), the two
+   march kernels' ms in the trace and the peak GiB, beside the flagship's
+   ``[loop-steady]`` numbers; ``[capture-cli]`` runs ``cli.eval
+   --holdout-cameras 1 --num-items 2``, ``cli.render --num-frames 1`` and
+   ``cli.generate_id_cond`` on that checkpoint;
 7. forward kernel vs plain on the flagship scene, its second output (the
    rays' saturation state, which the training step saves for the backward)
    included, with the kernel's time with and without that output, the plain
@@ -90,20 +112,27 @@ import subprocess
 import sys
 import tempfile
 import time
+import zipfile
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from ava256_tpu_torch import native
 from ava256_tpu_torch.cli import eval as cli_eval
 from ava256_tpu_torch.cli import generate_id_cond as cli_idc
 from ava256_tpu_torch.cli import render as cli_render
 from ava256_tpu_torch.cli import train as cli_train
+from ava256_tpu_torch.config import load_config
+from ava256_tpu_torch.data.dataset import MultiCaptureDataset, _zip_read, train_csv_loader
 from ava256_tpu_torch.data.loader import Uploader
+from ava256_tpu_torch.data.png import decode_png
 from ava256_tpu_torch.data.synthetic import (
-    SyntheticDataset, none_collate, raymarch_scene, synthetic_uvdata, write_topology_obj)
+    SyntheticDataset, none_collate, raymarch_scene, synthetic_uvdata, write_capture,
+    write_topology_obj)
 from ava256_tpu_torch.factory import get_autoencoder
 from ava256_tpu_torch.flagship import FLAGSHIP  # configs/config-synthetic-flagship.yaml
+from ava256_tpu_torch.geometry.ply import parse_ply_vertices
 from ava256_tpu_torch.ops import raymarch_cuda as rc
 from ava256_tpu_torch.ops.cuda_lib import build_all
 from ava256_tpu_torch.ops.math3d import rodrigues
@@ -559,8 +588,9 @@ class Watched:
     kept, and read only after the run, so the watch adds no device sync
     inside the timed step; each StepTimer is kept for its per-step times."""
 
-    def __init__(self):
+    def __init__(self, cached=("avgtex",)):
         self.steps, self.timers = [], []  # (idindex, camindex, launches) per step
+        self.cached = cached  # fields the device tables hold, which a lean batch lacks
 
     def __enter__(self):
         make, steps, timers = loop.make_train_step, self.steps, self.timers
@@ -569,7 +599,7 @@ class Watched:
             step = make(*args, **kwargs)
 
             def counted(state, batch, **kw):
-                if kw.get("cond") is None or "avgtex" in batch:
+                if kw.get("cond") is None or any(k in batch for k in self.cached):
                     raise AssertionError("loop: the step was not handed the device tables and "
                                          "a lean batch")
                 before = march_launches()
@@ -717,7 +747,10 @@ def flagship_loop_steady(dev: torch.device, work: Path, train_ms_per_step: float
         bwd_launches=launches[1], bwd_with_state=launches[2])
     log("loop-steady-trace", step=STEADY_TRACED,
         **{k: round(v, 3) if isinstance(v, float) else v for k, v in busy.items()})
-    return launches
+    return launches, dict(p50_ms_warmup=round(float(np.median(warm)), 3),
+                          p50_ms_normal=round(float(np.median(normal)), 3),
+                          busy_share_normal=busy_share(busy, float(np.median(normal))),
+                          march_ms=trace_march_ms(run_dir / "profile" / TRACE_FILE))
 
 
 def flagship_cli(dev: torch.device, work: Path):
@@ -757,6 +790,196 @@ def flagship_cli(dev: torch.device, work: Path):
     log("cli", eval=json.dumps(result), eval_ms_per_item=per_item[0], render_pngs=len(pngs),
         id_conds=len(pkls), fwd_launches=launches[0], bwd_launches=launches[1],
         seconds=round(seconds, 3))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6d: the capture-data path on configs/config-4.yaml
+# ---------------------------------------------------------------------------
+
+CONFIG4_YAML = "configs/config-4.yaml"
+# what [capture-write] writes: identities, cameras and frames of the synthetic
+# dataset (at the flagship's 512x334 and 1024^2 textures), the camera images'
+# size and the downsample that gives the renders' rays back (config-4's)
+CAPTURE = dict(nident=4, ncams=4, nframes=3, image_hw=(4096, 2668), downsample=8)
+CAPTURE_FIRST_END, CAPTURE_TRACED, CAPTURE_END = 2, 5, 8
+
+
+def trace_march_ms(path) -> dict:
+    """Summed ms of the two march kernels in a torch.profiler trace."""
+    events = [e for e in json.loads(Path(path).read_text())["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    return {name: round(sum(e["dur"] for e in events if name in e["name"]) / 1e3, 3)
+            for name in ("mvp_march_fwd_kernel", "mvp_march_bwd_kernel")}
+
+
+def capture_write(work: Path) -> Path:
+    """[capture-write]: the captures in the release's layout; returns the CSV."""
+    f, c = FLAGSHIP, CAPTURE
+    t0 = time.perf_counter()
+    syn = SyntheticDataset(nident=c["nident"], ncams=c["ncams"], nframes=c["nframes"],
+                           height=f["height"], width=f["width"], texsize=f["texsize"])
+    csv = write_capture(work / "captures", syn, downsample=c["downsample"],
+                        image_hw=c["image_hw"])
+    seconds = time.perf_counter() - t0
+    files = [q for q in (work / "captures").rglob("*") if q.is_file()]
+    caps, dirs = train_csv_loader(work / "captures", csv, c["nident"])
+    d = Path(dirs[0])
+    cam = json.loads((d / "camera_calibration.json").read_text())["KRT"][0]["cameraId"]
+    with zipfile.ZipFile(d / "image" / f"cam{cam}.zip") as z:
+        img = decode_png(_zip_read(z, f"cam{cam}/000001"))
+    with zipfile.ZipFile(d / "uv_image" / "color.zip") as z:
+        tex = decode_png(_zip_read(z, "color/000001"))
+    with zipfile.ZipFile(d / "kinematic_tracking" / "registration_vertices.zip") as z:
+        verts = parse_ply_vertices(z.read("000001.ply"))
+    if (img.shape[:2] != tuple(c["image_hw"]) or tex.shape[:2] != (f["texsize"],) * 2
+            or verts.shape != (syn.nverts, 3) or len(caps) != c["nident"]):
+        raise AssertionError(f"capture-write: image {img.shape}, texture {tex.shape}, "
+                             f"vertices {verts.shape}, {len(caps)} captures")
+    log("capture-write", captures=len(caps), cameras=c["ncams"], frames=c["nframes"],
+        image_hw=list(img.shape), texture_hw=list(tex.shape), vertices=verts.shape[0],
+        files=len(files), bytes=sum(q.stat().st_size for q in files), seconds=round(seconds, 3))
+    return csv
+
+
+def capture_io(work: Path, csv: Path):
+    """[capture-io]: one item's fetch on this host, part by part, and the
+    host library's resize against its numpy restatement at full size."""
+    c = CAPTURE
+    caps, dirs = train_csv_loader(work / "captures", csv, c["nident"])
+    ds = MultiCaptureDataset(caps, dirs, downsample=c["downsample"])
+    single = ds.single_capture_datasets[caps[0]]
+    _, frame, cam = single.item_ids(0)
+    t = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        t[name] = round((time.perf_counter() - t0) * 1e3, 3)
+        return out
+
+    data = timed("zip_read_ms", lambda: _zip_read(single._zip(f"image/cam{cam}.zip"),
+                                                  f"cam{cam}/{int(frame):06d}"))
+    img = timed("decode_png_ms", lambda: decode_png(data))
+    ply = single._zip("kinematic_tracking/registration_vertices.zip").read(f"{int(frame):06d}.ply")
+    timed("ply_ms", lambda: parse_ply_vertices(ply))
+    h, w = ds.get_img_size()
+    small = timed("resize_ms", lambda: native.resize_bilinear_u8(img, (h, w)))
+    plain = timed("resize_plain_ms", lambda: native.resize_bilinear_u8_plain(img, (h, w)))
+    off = np.abs(small.astype(np.int16) - plain)
+    if small.shape != (h, w, 3) or int(off.max()) > 1:
+        raise AssertionError(f"capture-io: resize {small.shape}, max |d| {int(off.max())} "
+                             "levels from its plain version (limit 1)")
+    fetch_ms = []
+    for i in range(4):
+        t0 = time.perf_counter()
+        item = ds[i]
+        fetch_ms.append(round((time.perf_counter() - t0) * 1e3, 3))
+        if item is None or item["image"].shape != (h, w, 3):
+            raise AssertionError(f"capture-io: item {i} is {item and item['image'].shape}")
+    log("capture-io", image_hw=list(img.shape), img_size=[h, w], fetch_ms=fetch_ms,
+        resize_levels_off_by_1=int((off == 1).sum()), resize_max_levels_off=int(off.max()),
+        **t)
+    return (h, w)
+
+
+def capture_train(dev: torch.device, work: Path, csv: Path, img_hw, flagship_steady: dict):
+    """[capture-train]: cli.train on config-4 over the written captures, 2
+    steps from scratch, then a resume to step 8 with step 5 traced."""
+    run_dir = work / "capture_run"
+    argv = ["--config", CONFIG4_YAML, "--device", str(dev),
+            f"train.dataset_dir={work / 'captures'}", f"train.data_csv={csv}",
+            f"assets={work / 'assets'}", f"progress.output_path={run_dir}"]
+    ckpt_dir = run_dir / "checkpoints"
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_march_launches()  # this path starts here
+    t0 = time.perf_counter()
+    with LogLines() as log_lines, Watched(cached=("neut_avgtex", "neut_verts")) as watched:
+        state = cli_train.main(argv + [f"train.maxiter={CAPTURE_FIRST_END}"])
+        if state.step != CAPTURE_FIRST_END or latest_checkpoint_step(ckpt_dir) != CAPTURE_FIRST_END:
+            raise AssertionError(f"capture-train: step {state.step} after the first call")
+        kept = [p.detach().clone() for p in state.model.parameters()]
+        del state
+        state = cli_train.main(argv + [f"train.maxiter={CAPTURE_END}",
+                                       f"progress.profile_at={CAPTURE_TRACED}"])
+    launches = march_launches()
+    seconds = time.perf_counter() - t0  # this path ends here
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    lines, steps = log_lines.lines, watched.steps
+    if state.step != CAPTURE_END or len(steps) != CAPTURE_END:
+        raise AssertionError(f"capture-train: step {state.step}, {len(steps)} steps")
+    if any(s[2] != (1, 1, 1) for s in steps):
+        raise AssertionError(f"capture-train: launches per step {[s[2] for s in steps]}")
+    bsz = int(load_config(CONFIG4_YAML).train.batchsize)
+    if any(len(s[0]) != bsz for s in steps) or any("failed to fetch" in ln for ln in lines):
+        raise AssertionError("capture-train: a batch lost an item: "
+                             f"{[len(s[0]) for s in steps]}")
+    if not any("Resumed from" in ln and f"step {CAPTURE_FIRST_END}" in ln for ln in lines):
+        raise AssertionError("capture-train: the second call did not resume")
+    its = [(float(m.group(1)), float(m.group(2))) for ln in lines
+           if (m := re.match(r"Iteration \d+ loss = (\S+),.* time: (\S+) s", ln))]
+    losses = [v for v, _ in its]
+    if len(losses) != CAPTURE_END or not all(np.isfinite(v) for v in losses):
+        raise AssertionError(f"capture-train: losses {losses}")
+    params = list(state.model.parameters())
+    if all(torch.equal(p.detach(), q) for p, q in zip(params, kept)):
+        raise AssertionError("capture-train: the resumed steps changed no parameter")
+    h, w = img_hw
+    if png_size(run_dir / "progress_0.png") != (bsz * h, 3 * w, 3):
+        raise AssertionError(f"capture-train: progress_0.png is "
+                             f"{png_size(run_dir / 'progress_0.png')}")
+    xid = png_size(run_dir / "x-id" / "progress_0.png")
+    if xid[0] != h or xid[1] % w or xid[2] != 3:
+        raise AssertionError(f"capture-train: x-id/progress_0.png is {xid}")
+    ms = dict(zip(range(CAPTURE_END), watched.ms(0) + watched.ms(1)))
+    steady = [ms[i] for i in range(CAPTURE_END)
+              if i not in (0, CAPTURE_FIRST_END, CAPTURE_TRACED)]
+    p50 = float(np.median(steady))
+    trace = run_dir / "profile" / TRACE_FILE
+    busy = trace_busy(trace)
+    log("capture-train", steps=CAPTURE_END, resumed_at=CAPTURE_FIRST_END, traced=CAPTURE_TRACED,
+        losses=[round(v, 4) for v in losses], steptimer_ms=ms,
+        iteration_s=[round(t, 3) for _, t in its],
+        steptimer_p50_ms_steady=round(p50, 3), steady_steps=len(steady),
+        device_busy_share=busy_share(busy, p50), device_busy_share_traced=busy_share(busy),
+        traced_kernel_ms=round(busy["kernel_ms"], 3), march_ms_traced=trace_march_ms(trace),
+        peak_gib=round(peak_gib, 3), fwd_launches=launches[0], bwd_launches=launches[1],
+        bwd_with_state=launches[2], seconds=round(seconds, 3),
+        flagship_steady=json.dumps(flagship_steady))
+    log("capture-train-trace", step=CAPTURE_TRACED,
+        **{k: round(v, 3) if isinstance(v, float) else v for k, v in busy.items()})
+    return launches
+
+
+def capture_cli(dev: torch.device, work: Path, csv: Path, img_hw):
+    """[capture-cli]: cli.eval on the last camera, cli.render and
+    cli.generate_id_cond on the capture run's checkpoint."""
+    common = ["--config", CONFIG4_YAML, "--device", str(dev),
+              "--checkpoint", str(work / "capture_run" / "checkpoints")]
+    opts = ["--opts", f"train.dataset_dir={work / 'captures'}", f"train.data_csv={csv}",
+            f"assets={work / 'assets'}"]
+    reset_march_launches()  # this path starts here
+    t0 = time.perf_counter()
+    result = cli_eval.main(common + ["--holdout-cameras", "1", "--num-items", "2"] + opts)
+    rendered = cli_render.main(common + ["--num-frames", "1", "--output",
+                                         str(work / "capture_renders")] + opts)
+    names = cli_idc.main(common + ["--output", str(work / "capture_id_conds")] + opts)
+    launches = march_launches()
+    seconds = time.perf_counter() - t0  # this path ends here
+    if result["split"] != "heldout_cameras" or result["items"] != 2 or not all(
+            np.isfinite(result[k]) for k in ("psnr_db", "ssim", "lpips_rf")):
+        raise AssertionError(f"capture-cli: eval {result}")
+    h, w = img_hw
+    pngs = sorted((work / "capture_renders").glob("render_*.png"))
+    if rendered != 1 or len(pngs) != 1 or png_size(pngs[0]) != (h, 3 * w, 3):
+        raise AssertionError(f"capture-cli: render {rendered}, {pngs}")
+    pkls = sorted(q.name for q in (work / "capture_id_conds").glob("*.pkl"))
+    if len(names) != CAPTURE["nident"] or pkls != sorted(n + ".pkl" for n in names):
+        raise AssertionError(f"capture-cli: id conds {pkls} for {names}")
+    if launches != (2 + 2, 0, 0):  # 2 eval items, 1 frame of 2 decodes
+        raise AssertionError(f"capture-cli: kernel launches {launches}")
+    log("capture-cli", eval=json.dumps(result), render_pngs=len(pngs), id_conds=pkls,
+        fwd_launches=launches[0], bwd_launches=launches[1], seconds=round(seconds, 3))
     return launches
 
 
@@ -924,11 +1147,12 @@ def main() -> int:
         torch=torch.__version__, cuda=torch.version.cuda, smi=repr(smi))
 
     t0 = time.perf_counter()
-    libs = [rc.MARCH_FWD_LIB, rc.MARCH_BWD_LIB]
+    libs = [rc.MARCH_FWD_LIB, rc.MARCH_BWD_LIB, native.DATAIO_LIB]
     build_all(libs)
     ptxas = [ln.strip() for lib in libs for ln in lib.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
-    log("build", seconds=round(time.perf_counter() - t0, 3), ptxas=ptxas)
+    log("build", seconds=round(time.perf_counter() - t0, 3), ptxas=ptxas,
+        libs=[lib.path.name for lib in libs])
 
     small_err = small_scenes(dev)
     log("small-scenes", max_abs_err=small_err)
@@ -946,7 +1170,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         cli_launches = flagship_cli(dev, work)
         torch.cuda.empty_cache()
-        steady_launches = flagship_loop_steady(dev, work, step_ms)
+        steady_launches, steady = flagship_loop_steady(dev, work, step_ms)
+        torch.cuda.empty_cache()
+        csv = capture_write(work)
+        img_hw = capture_io(work, csv)
+        capture_launches = capture_train(dev, work, csv, img_hw, steady)
+        torch.cuda.empty_cache()
+        capture_cli_launches = capture_cli(dev, work, csv, img_hw)
     torch.cuda.empty_cache()
     args, state, plain_state, boxes, samples, k = flagship_kernel(mi, dev)
     kb = flagship_kernel_bwd(args, state, plain_state, boxes, samples, dev)
@@ -956,10 +1186,11 @@ def main() -> int:
         dict(name="mvp_march_fwd", route="cuda", source=src + "mvp_march_fwd.cu",
              replaces="ava256_tpu/ops/raymarch_pallas.py:831",
              launches=render_launches + train_launches[0] + loop_launches[0] + cli_launches[0]
-             + steady_launches[0],
+             + steady_launches[0] + capture_launches[0] + capture_cli_launches[0],
              launches_render=render_launches, launches_train=train_launches[0],
              launches_loop=loop_launches[0], launches_cli=cli_launches[0],
-             launches_loop_steady=steady_launches[0],
+             launches_loop_steady=steady_launches[0], launches_capture_train=capture_launches[0],
+             launches_capture_cli=capture_cli_launches[0],
              max_abs_err=max(small_err, k["max_abs_err"]),
              ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
              library_ms=None,
@@ -969,11 +1200,14 @@ def main() -> int:
         dict(name="mvp_march_bwd", route="cuda", source=src + "mvp_march_bwd.cu",
              replaces="ava256_tpu/ops/raymarch_pallas.py:908",
              launches=train_launches[1] + loop_launches[1] + cli_launches[1]
-             + steady_launches[1],
+             + steady_launches[1] + capture_launches[1] + capture_cli_launches[1],
              launches_train=train_launches[1], launches_loop=loop_launches[1],
              launches_cli=cli_launches[1], launches_loop_steady=steady_launches[1],
+             launches_capture_train=capture_launches[1],
+             launches_capture_cli=capture_cli_launches[1],
              # launches that were handed the forward's saved state (all of them)
-             launches_with_state=train_launches[2] + loop_launches[2] + steady_launches[2],
+             launches_with_state=train_launches[2] + loop_launches[2] + steady_launches[2]
+             + capture_launches[2],
              max_abs_err=max(small_bwd_err, kb["max_abs_err"]), ms=kb["ms"],
              plain_ms=kb["plain_ms"], bound_ms=kb["bound_ms"], bound_by=kb["bound_by"],
              library_ms=None,

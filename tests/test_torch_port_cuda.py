@@ -295,3 +295,69 @@ def test_metrics_on_the_card_equal_the_cpu(card):
     for fn, tol in ((metrics.ssim, 1e-5), (metrics.lpips, 1e-4), (metrics.psnr, 1e-6)):
         a, b = float(fn(*dev)), float(fn(*cpu))
         assert abs(a - b) <= tol * abs(b), (fn.__name__, a, b)
+
+
+def test_config4_march_on_captured_batches(card, tmp_path):
+    """Config-4's march on a batch of captured items: 4 items of 4 written
+    captures at 512x333 (4096x2668 at downsample 8), 16,384 primitives of
+    8^3 from the decoders (random weights), tile 16, max_hit 128; the kernels
+    against their plain versions on every 16th tile, forward and its state at
+    1e-5, backward at BWD_TOL."""
+    from ava256_tpu_torch.data import (
+        MultiCaptureDataset, SyntheticDataset, none_collate, train_csv_loader, write_capture)
+    from ava256_tpu_torch.data.loader import Uploader
+    from ava256_tpu_torch.data.synthetic import synthetic_uvdata
+    from ava256_tpu_torch.factory import get_autoencoder
+    from ava256_tpu_torch.render import BATCH_MODEL_KEYS
+    from ava256_tpu_torch.train.loop import to_model_batch
+
+    syn = SyntheticDataset(nident=4, ncams=4, nframes=1, height=512, width=334, texsize=1024)
+    csv = write_capture(tmp_path, syn, downsample=8, image_hw=(512, 334))
+    ds = MultiCaptureDataset(*train_csv_loader(tmp_path, csv, 4), downsample=8)
+    assert ds.get_img_size() == (512, 333)
+    items = [ds[i] for i in (0, 5, 10, 15)]  # one camera of each identity
+    assert all(x is not None for x in items)
+    b = Uploader(card).now(to_model_batch(none_collate(items)))
+    model = get_autoencoder(synthetic_uvdata(1024), ds.vertmean, ds.vertstd, ncams=4, nident=4,
+                            nprims=16384, primsize=(8, 8, 8),
+                            raymarch_options={"tile": 16, "max_hit": 128}, device=card, seed=0)
+    kw = dict(target_neut_avgtex=b["neut_avgtex"], target_neut_verts=b["neut_verts"],
+              idindex=b["idindex"], camindex=b["camindex"], **{k: b[k] for k in BATCH_MODEL_KEYS})
+    with torch.inference_mode():
+        model(running_avg_scale=True, generator=torch.Generator(device=card).manual_seed(1), **kw)
+        mi = model(deterministic=True, output_set=frozenset({"march_inputs"}), **kw)[
+            "march_inputs"]
+        dt = float(mi["stepsize"])
+        nbuf = rc.default_nbuf(dt)
+        n, K = mi["primpos"].shape[:2]
+        tmm = mi["tminmax"]
+        tmm = torch.stack([tmm[..., 0], torch.minimum(tmm[..., 1], tmm[..., 0] + nbuf * dt)], -1)
+        t_o, t_d, t_mm, gid, valid, _, _ = rc.tile_and_cull(
+            mi["raypos"], mi["raydir"], tmm, mi["primpos"], mi["primscale"],
+            torch.ones((n, K), device=card), 16, 128, dt)
+        scal = rc.candidate_affines(mi["primpos"], mi["primrot"], mi["primscale"], gid, valid)
+    hits = valid.sum(1)
+    print(f"tiles {gid.shape[0]}, candidates per tile: max {int(hits.max())}, "
+          f"mean {float(hits.float().mean()):.1f}, tiles over 64: {int((hits > 64).sum())}")
+    assert gid.shape == (4 * 32 * 21, 128) and int(hits.max()) > 0
+    sel = slice(0, gid.shape[0], 16)
+    warp = mi.get("warp")
+    args = (gid[sel].to(torch.int32).contiguous(), scal[sel].contiguous(), t_o[sel].contiguous(),
+            t_d[sel].contiguous(), t_mm[sel].contiguous(),
+            mi["template"].reshape(n * K, 8, 8, 8, 4).contiguous(),
+            None if warp is None else warp.reshape(n * K, 8, 8, 8, 3).contiguous(),
+            dt, 8.0, 8.0, nbuf)
+    before = (rc.march_tiles_kernel.launches, rc.march_tiles_bwd_kernel.launches)
+    out, state = rc.march_tiles(*args, with_state=True)
+    ref, ref_state = rc.march_tiles_plain(*args, with_state=True)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(state.cpu().numpy(), ref_state.cpu().numpy(), rtol=1e-5,
+                               atol=1e-5)
+    assert float(ref[:, 3].max()) > 0.5  # the head is in the selected tiles
+    g = torch.from_numpy(np.random.RandomState(2).randn(*out.shape).astype(np.float32)).to(card)
+    grads = rc.march_tiles_bwd(*args[:5], g, *args[5:], state=state)
+    plain = rc.march_tiles_bwd_plain(*args[:5], g, *args[5:], state=ref_state)
+    torch.cuda.synchronize()
+    assert (rc.march_tiles_kernel.launches, rc.march_tiles_bwd_kernel.launches) == \
+        (before[0] + 1, before[1] + 1)
+    _assert_grads(grads, plain, "config-4 on captures")

@@ -294,6 +294,7 @@ def test_port_imports_without_jax():
         "import ava256_tpu_torch.train.step, ava256_tpu_torch.train.loop\n"
         "import ava256_tpu_torch.config, ava256_tpu_torch.utils, ava256_tpu_torch.geometry\n"
         "import ava256_tpu_torch.data.dataset, ava256_tpu_torch.data.loader\n"
+        "import ava256_tpu_torch.data.png, ava256_tpu_torch.native\n"
         "import ava256_tpu_torch.train.metrics, ava256_tpu_torch.train.profiling\n"
         "import ava256_tpu_torch.cli.train, ava256_tpu_torch.cli.eval\n"
         "import ava256_tpu_torch.cli.render, ava256_tpu_torch.cli.generate_id_cond\n"
