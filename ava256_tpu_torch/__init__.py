@@ -20,6 +20,8 @@ layout and never imports it:
 - ``geometry`` — the topology ``.obj`` and its UV barycentric maps;
 - ``train``   — losses, optimizer and checkpoints, the train step, the loop,
   image metrics, step timing and traces;
+- ``parallel`` — data parallelism over ``torch.distributed`` (one process
+  per device under ``torchrun``) and the ray-sharded render;
 - ``cli``     — the entry points users run
   (``python -m ava256_tpu_torch.cli.{train,eval,render,generate_id_cond}``);
 - ``config`` / ``utils`` — YAML configs with dotted overrides, PNG strips

@@ -8,8 +8,14 @@
     python -m ava256_tpu_torch.cli.train --config configs/config-synthetic-flagship.yaml \\
         assets=DIR train.maxiter=N
 
-YAML config + dotted overrides (``--opts a.b=c ...`` or inline); see
-``train.loop`` for what a run does. ``assets`` names the directory that holds
+Data-parallel over N devices, one process each (``train.batchsize`` items
+per process and step)::
+
+    torchrun --nproc_per_node N -m ava256_tpu_torch.cli.train --config ... mesh.multihost=true
+
+(``--device cpu`` trains the ranks on the CPU over gloo.) YAML config +
+dotted overrides (``--opts a.b=c ...`` or inline); see ``train.loop`` for
+what a run does. ``assets`` names the directory that holds
 ``face_topology.obj`` (``data.synthetic.write_topology_obj`` writes one for
 the synthetic dataset).
 """

@@ -92,10 +92,12 @@ class Uploader:
         return up.ready() if isinstance(up, Upload) else up
 
 
-def device_prefetch(iterable, fn: Callable, depth: int = 2):
+def device_prefetch(iterable, fn: Callable, depth: int = 2, keep_none: bool = False):
     """Map ``fn`` (typically the host->device upload) over ``iterable`` in a
     background thread so the transfer of batch i+1 overlaps the consumer's
-    compute on batch i. ``None`` items (failed collates) are skipped; an
+    compute on batch i. ``None`` items (failed collates) are skipped, or
+    with ``keep_none`` passed on as ``None`` (ranks that must agree on
+    every step need to see them); an
     error in the feeder is raised in the consumer. An ``Upload`` is made
     ``ready()`` in the consumer's thread before it is yielded. When the
     consumer stops early, the feeder stops, closes ``iterable``'s iterator
@@ -121,9 +123,9 @@ def device_prefetch(iterable, fn: Callable, depth: int = 2):
         it = iter(iterable)
         try:
             for item in it:
-                if item is None:
+                if item is None and not keep_none:
                     continue
-                if not put(fn(item)):
+                if not put(None if item is None else fn(item)):
                     return
         except BaseException as e:  # surface loader errors in the consumer
             errs.append(e)
@@ -211,8 +213,11 @@ class ShardedLoader:
         if self.shuffle:
             rng = np.random.RandomState(self.seed + self.epoch)
             rng.shuffle(idx)
-        # host shard: contiguous strided split like DistributedSampler
-        return idx[self.host_id :: self.num_hosts]
+        # host shard: strided split like DistributedSampler, cut to the same
+        # length on every host (its drop_last), so that all hosts take the
+        # same number of steps and meet in every collective (the JAX
+        # package's loader does not cut them)
+        return idx[self.host_id :: self.num_hosts][: n // self.num_hosts]
 
     def __iter__(self) -> Iterator[Optional[Dict[str, Any]]]:
         indices = self._epoch_indices()

@@ -10,7 +10,7 @@ background). Images are NHWC at the interface."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, FrozenSet, Optional
+from typing import Any, Dict, FrozenSet, Optional, Tuple
 
 import torch
 from torch import nn
@@ -69,9 +69,11 @@ class Autoencoder(nn.Module):
         render: bool = True,
         generator: Optional[torch.Generator] = None,
         noise: Optional[torch.Tensor] = None,
+        noise_rows: Optional[Tuple[int, int]] = None,
     ) -> Dict[str, Optional[torch.Tensor]]:
         """``generator`` (or an explicit ``noise`` [B, 4, 4, 16]) drives the
-        bottleneck's sampling when not ``deterministic``."""
+        bottleneck's sampling when not ``deterministic``; ``noise_rows``
+        places the batch in a global one (``VAEBottleneck.forward``)."""
         if neut_verts is None or neut_avgtex is None:
             raise ValueError("Empty identity conditioning data")
         if id_cond is None:
@@ -84,7 +86,8 @@ class Autoencoder(nn.Module):
         if force_neutral:
             expr_code = torch.zeros_like(expr_code)
         expr_code, expr_mu, expr_logstd = self.bottleneck(
-            expr_code, deterministic=deterministic, generator=generator, noise=noise)
+            expr_code, deterministic=deterministic, generator=generator, noise=noise,
+            noise_rows=noise_rows)
 
         result: Dict[str, Optional[torch.Tensor]] = {
             "encoding": expr_code,

@@ -36,17 +36,23 @@ class VAEBottleneck(nn.Module):
 
     def forward(self, x: torch.Tensor, deterministic: bool = False,
                 generator: Optional[torch.Generator] = None,
-                noise: Optional[torch.Tensor] = None
+                noise: Optional[torch.Tensor] = None,
+                noise_rows: Optional[Tuple[int, int]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """x [N, H, W, C] -> (z, mu, logstd), each [N, H, W, out_dim].
         ``deterministic`` gives z = mu; otherwise z = mu + exp(logstd) * noise,
-        with ``noise`` given or drawn from ``generator``."""
+        with ``noise`` given or drawn from ``generator``. ``noise_rows`` =
+        (first, total): x holds rows [first, first + N) of a global batch of
+        ``total``, and the draw is the global batch's, of which these rows
+        are kept."""
         xc = nhwc_to_nchw(x)
         mu = nchw_to_nhwc(self.mu(xc)) * self.mean_squash
         logstd = nchw_to_nhwc(self.logstd(xc)) * self.std_squash
         if deterministic:
             return mu, mu, logstd
         if noise is None:
-            noise = torch.randn(logstd.shape, generator=generator, dtype=logstd.dtype,
-                                device=logstd.device)
+            first, total = (0, logstd.shape[0]) if noise_rows is None else noise_rows
+            noise = torch.randn((total,) + tuple(logstd.shape[1:]), generator=generator,
+                                dtype=logstd.dtype, device=logstd.device)
+            noise = noise[first:first + logstd.shape[0]]
         return mu + torch.exp(logstd) * noise, mu, logstd

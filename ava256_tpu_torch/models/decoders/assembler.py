@@ -13,8 +13,10 @@ per-primitive position, rotation and scale).
    at the centres of its stride x stride blocks.
 4. Primitive scale: for 256 and 16384 primitives an EMA of 2 / neighbour
    distance (the ``adaptwarps`` buffer, updated in ``forward`` when
-   ``running_avg_scale``), floored at nh / 12.8; otherwise a table constant.
-5. TBN rotation frames from position-map differences inside each block.
+   ``running_avg_scale``; the distances' max is over the global batch when a
+   process group is up), floored at nh / 12.8; otherwise a table constant.
+5. TBN rotation frames from position-map differences at each block's centre
+   (``tbn_frames``).
 6. Apply the SRT residuals, ramped by ``residuals_weight``.
 7. RGB decoder -> colours; template = [relu(rgb * 25 + 100), relu(alpha)].
 """
@@ -32,6 +34,7 @@ from ava256_tpu_torch.models.decoders.rgb import RGBDecoder
 from ava256_tpu_torch.ops.geomap import generate_geomap
 from ava256_tpu_torch.ops.layers import remat
 from ava256_tpu_torch.ops.math3d import rodrigues
+from ava256_tpu_torch.parallel import all_reduce_max_
 
 _PRIMSCALE_TABLE = {1: 2.0, 8: 4.0, 64: 8.0, 256: 12.0, 512: 16.0, 4096: 32.0,
                     16384: 48.0, 32768: 64.0, 262144: 128.0}
@@ -40,6 +43,37 @@ _ADAPTIVE_NPRIMS = (256, 16384)
 
 def _unit(v: torch.Tensor) -> torch.Tensor:
     return v / torch.clamp(torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True)), min=1e-8)
+
+
+def tbn_frames(postex: torch.Tensor, nh: int, s: int) -> torch.Tensor:
+    """[N, nh * s, nh * s, 3] position map -> [N, nh * nh, 3, 3] TBN frames
+    (columns tangent, bitangent, normal) at the centre texel c = s // 2 of
+    each s x s block, from the map's forward differences along u and v, the
+    last one duplicated at the map's edge (the reference's semantics).
+
+    While c + 1 < s the differences stay inside a block, and are taken from
+    block slices as the JAX package takes them. At s = 2 (262,144 primitives
+    on a 1024^2 map) they cross into the next block. The JAX package indexes
+    its blocks there too: its index c + 1 = s clamps to c, so its
+    differences and frames are zero."""
+    n, res = postex.shape[0], postex.shape[1]
+    c = s // 2
+    if c + 1 >= s:
+        def diff(p):  # [N, nh, res, 3] -> forward differences along axis 2 at c::s
+            d = p[:, :, c + 1::s] - p[:, :, c:res - 1:s]
+            return torch.cat([d, p[:, :, -1:] - p[:, :, -2:-1]], dim=2)
+
+        vcenterdu = diff(postex[:, c::s])
+        vcenterdv = diff(postex[:, :, c::s].transpose(1, 2)).transpose(1, 2)
+    else:
+        blocks = postex.reshape(n, nh, s, nh, s, 3)
+        ctr = blocks[:, :, c, :, c, :]
+        vcenterdu = blocks[:, :, c, :, c + 1, :] - ctr
+        vcenterdv = blocks[:, :, c + 1, :, c, :] - ctr
+    tangent = _unit(vcenterdu)
+    normal = _unit(torch.cross(tangent, vcenterdv, dim=-1))
+    bitangent = _unit(torch.cross(normal, tangent, dim=-1))
+    return torch.stack([tangent, bitangent, normal], dim=-1).reshape(n, nh * nh, 3, 3)
 
 
 class DecoderAssembler(nn.Module):
@@ -103,7 +137,9 @@ class DecoderAssembler(nn.Module):
                 cy = torch.cat([cy, cy[:, -1:, :, :]], dim=1)
                 centsize = torch.maximum(torch.sqrt(torch.sum(cx * cx, dim=-1)),
                                          torch.sqrt(torch.sum(cy * cy, dim=-1)))
-                centsize = torch.amax(centsize, dim=0).reshape(K)
+                # the max over the global batch, as under JAX's SPMD: every
+                # rank of a process group then holds the same adaptwarps
+                centsize = all_reduce_max_(torch.amax(centsize, dim=0).reshape(K))
                 # the floor keeps UV-seam texels (neighbours across the atlas)
                 # from making primitives as large as the volume
                 warps_vec = torch.clamp((2.0 / centsize).detach(), min=nh / 12.8)
@@ -116,14 +152,7 @@ class DecoderAssembler(nn.Module):
             const = _PRIMSCALE_TABLE.get(K, 0.4 * nh)
             primscale = torch.full((n, K, 3), const, dtype=postex.dtype, device=postex.device)
 
-        # TBN frames from forward differences inside each position-map block
-        blocks = postex.reshape(n, nh, s, nh, s, 3)
-        ctr = blocks[:, :, c, :, c, :]
-        tangent = _unit(blocks[:, :, c, :, c + 1, :] - ctr)
-        vcenterdv = blocks[:, :, c + 1, :, c, :] - ctr
-        normal = _unit(torch.cross(tangent, vcenterdv, dim=-1))
-        bitangent = _unit(torch.cross(normal, tangent, dim=-1))
-        primrot = torch.stack([tangent, bitangent, normal], dim=-1).reshape(n, K, 3, 3)
+        primrot = tbn_frames(postex, nh, s)
 
         rw = min(max(float(residuals_weight), 0.0), 1.0)
         primpos = primpos + pos_resid * rw

@@ -17,6 +17,14 @@ every 1,000); a loss line per step with the learning rate; checkpoints at the
 cadence and at the end, resuming from the latest one found; tensorboard
 scalars when ``progress.tensorboard.logdir`` is set; a trace of step
 ``progress.profile_at``; the step times in ``timesinfo_r0.npy``.
+
+``mesh.multihost: true`` trains data-parallel with one process per device,
+as ``torchrun`` starts them (``ava256_tpu_torch.parallel``): each rank loads
+its own shard of every epoch, ``train.batchsize`` items a step (the batch
+size is per process, the reference DDP's per-GPU minibatch; the global batch
+is ``train.batchsize`` times the world size), and a step is taken only when
+every rank has a full batch. Rank 0 alone writes the progress renders,
+TensorBoard, the step times, the log lines and the checkpoints.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ava256_tpu_torch import parallel
 from ava256_tpu_torch.config import Config
 from ava256_tpu_torch.data.cond_cache import (
     LeanView, cached_field_names, expand_batch, table_nbytes, tables_to_device)
@@ -187,7 +196,7 @@ def _tensorboard(cfg: Config, outpath: Path):
         return None
     tb = SummaryWriter(str(outpath / cfg.progress.tensorboard.logdir))
     tb.add_hparams({"minibatchsize": cfg.train.batchsize,
-                    "globalbatchsize": cfg.train.batchsize,
+                    "globalbatchsize": cfg.train.batchsize * parallel.world_size(),
                     "learningrate": cfg.train.init_learning_rate,
                     "optimizer": cfg.train.get("optimizer", "adam")},
                    {"hp_metric": 1.0})
@@ -195,13 +204,34 @@ def _tensorboard(cfg: Config, outpath: Path):
 
 
 def run(cfg: Config, device="cuda", seed: int = 0) -> TrainState:
-    """Train as the configuration says; returns the final state."""
+    """Train as the configuration says; returns the final state. With
+    ``mesh.multihost`` the process joins the group of its launcher's
+    environment (``device`` then names the device type; the rank takes
+    ``cuda:LOCAL_RANK``) and leaves it at the end, on an error too."""
     device = resolve_device(device)
-    if cfg.mesh.get("multihost"):
-        raise NotImplementedError("multi-host training is not ported yet (ROADMAP Queue 1)")
+    multihost = bool(cfg.mesh.get("multihost"))
+    owns_group = multihost and not parallel.is_initialized()
+    if multihost:
+        device = parallel.init_from_env(device)
+        logger.info("Process group: backend %s, rank %d of %d, on %s", parallel.backend(),
+                    parallel.rank(), parallel.world_size(), device)
+    quiet = logging.getLogger("ava256_tpu_torch")
+    level = quiet.level
+    if parallel.rank() != 0:
+        quiet.setLevel(logging.WARNING)  # the log lines are rank 0's
+    try:
+        return _run(cfg, device, seed)
+    finally:
+        quiet.setLevel(level)
+        if owns_group:
+            parallel.destroy()
+
+
+def _run(cfg: Config, device: torch.device, seed: int) -> TrainState:
+    lead, world = parallel.rank() == 0, parallel.world_size()
     outpath = Path(cfg.progress.output_path)
     (outpath / "x-id").mkdir(parents=True, exist_ok=True)
-    tb = _tensorboard(cfg, outpath) if cfg.progress.tensorboard.logdir else None
+    tb = _tensorboard(cfg, outpath) if cfg.progress.tensorboard.logdir and lead else None
 
     t0 = time.time()
     dataset = build_dataset(cfg)
@@ -223,7 +253,8 @@ def run(cfg: Config, device="cuda", seed: int = 0) -> TrainState:
                     table_nbytes(tables) / 2**20, ", ".join(sorted(cached_field_names(tables))))
 
     loader = ShardedLoader(loader_dataset, batch_size=cfg.train.batchsize, shuffle=True,
-                           num_workers=cfg.train.num_workers)
+                           num_workers=cfg.train.num_workers, host_id=parallel.rank(),
+                           num_hosts=world)
     optimizer = make_optimizer(model, cfg.train.get("optimizer", "adam"),
                                cfg.train.init_learning_rate, cfg.train.gamma,
                                cfg.train.lr_scheduler_iter, cfg.train.clip)
@@ -259,7 +290,12 @@ def run(cfg: Config, device="cuda", seed: int = 0) -> TrainState:
                 break
             stepped = False
             # a feeder thread uploads batch i+1 while batch i computes
-            for mb in device_prefetch(loader, lambda b: upload(to_model_batch(b))):
+            for mb in device_prefetch(loader, lambda b: upload(to_model_batch(b)),
+                                      keep_none=world > 1):
+                if world > 1 and not parallel.all_ranks(
+                        mb is not None and len(mb["idindex"]) == cfg.train.batchsize, device):
+                    logger.warning("Step %d skipped: a rank's batch lost items", iternum)
+                    continue
                 stepped = True
                 iter_start = iter_end
                 in_warmup = iternum < warmup
@@ -272,7 +308,7 @@ def run(cfg: Config, device="cuda", seed: int = 0) -> TrainState:
                     loss = float(loss)  # the step's result on the host
 
                 # ---- progress renders ----
-                if (iternum < 10_000 and iternum % 100 == 0) or iternum % 1000 == 0:
+                if lead and ((iternum < 10_000 and iternum % 100 == 0) or iternum % 1000 == 0):
                     vis_mb = expand_batch(mb, cond)
                     _progress_render(eval_step, vis_mb, outpath, iternum)
                     if cfg.progress.cross_id and len(neutral_conds) > 1:
@@ -301,7 +337,8 @@ def run(cfg: Config, device="cuda", seed: int = 0) -> TrainState:
                 iternum += 1
                 if iternum >= cfg.train.maxiter:
                     logger.info("Stopping at max iter %d", iternum)
-                    timer.save(str(outpath), rank=0)
+                    if lead:
+                        timer.save(str(outpath), rank=0)
                     logger.info("Timing: %s", timer.summary())
                     done = True
                     break

@@ -14,6 +14,7 @@ schedule and checkpoints.
   gradients, the learning rate multiplies after Adam).
 - Checkpoints hold the model's parameters and its ``adaptwarps`` buffer, the
   optimizer state and the step, in one ``torch.save`` file written atomically.
+  Under a process group rank 0 writes it and every rank restores it.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ from typing import Callable, List, Optional
 
 import torch
 from torch import nn
+
+from ava256_tpu_torch import parallel
 
 
 def step_lr_schedule(init_lr: float, gamma: float, step_size: int) -> Callable[[int], float]:
@@ -118,14 +121,18 @@ def _ckpt_path(ckpt_dir, step: int) -> Path:
 
 def save_checkpoint(ckpt_dir, state: TrainState, step: Optional[int] = None) -> Path:
     """Write ``step_XXXXXXXX.pt`` under ckpt_dir: to a temporary name first,
-    then renamed, so a reader never sees half a file."""
+    then renamed, so a reader never sees half a file. Under a process group
+    only rank 0 writes (the ranks hold the same state), and every rank waits
+    at a barrier until the file is there."""
     step = int(state.step) if step is None else step
     path = _ckpt_path(ckpt_dir, step)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    torch.save({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
-                "step": int(state.step)}, tmp)
-    os.replace(tmp, path)
+    if parallel.rank() == 0:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        torch.save({"model": state.model.state_dict(),
+                    "optimizer": state.optimizer.state_dict(), "step": int(state.step)}, tmp)
+        os.replace(tmp, path)
+    parallel.barrier()
     return path
 
 

@@ -6,7 +6,13 @@
 """The train step, as in ``ava256_tpu.train.step``: forward -> four weighted
 losses -> backward -> NaN scrub -> gradient clip -> optimizer update. The
 warm-up behaviours (running_avg_scale, the ground-truth geometry, the
-residual ramp) are per-call switches."""
+residual ramp) are per-call switches.
+
+Under a process group (``ava256_tpu_torch.parallel``) each rank holds its
+rows of the global batch: the sampling noise is the global batch's draw,
+the gradients are averaged over the ranks before the scrub and the clip (as
+GSPMD's psum comes before optax), and the loss and its terms returned are
+the global batch's means."""
 
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ from typing import Callable, Dict, FrozenSet, Optional, Tuple
 
 import torch
 
+from ava256_tpu_torch import parallel
 from ava256_tpu_torch.data.cond_cache import expand_batch
 from ava256_tpu_torch.render import BATCH_MODEL_KEYS
 from ava256_tpu_torch.train.losses import compute_losses
@@ -40,10 +47,11 @@ def make_train_step(
 
     ``batch`` holds tensors on the model's device. The bottleneck samples
     from ``noise`` when given, else from ``generator``, else from a generator
-    seeded with the state's step. ``cond`` is an optional conditioning-table
+    seeded with the state's step; under a process group a given ``noise``
+    holds this rank's rows. ``cond`` is an optional conditioning-table
     tree on the device (data/cond_cache.py): lean batches are re-expanded by
-    gathers there. ``mark(name)`` is called after "forward", "backward" and
-    "optimizer" (for timing)."""
+    gathers there. ``mark(name)`` is called after "forward", "backward" (the
+    gradients' all-reduce included) and "optimizer" (for timing)."""
     device = next(model.parameters()).device
     vertmean = torch.as_tensor(vertmean, dtype=torch.float32, device=device)
     output_set = frozenset(output_set) | {"primscale"}
@@ -62,6 +70,10 @@ def make_train_step(
         full = expand_batch(batch, cond)
         if generator is None and noise is None:
             generator = step_generator(device, state.step)
+        noise_rows = None
+        if noise is None and parallel.is_initialized():
+            b = full["neut_avgtex"].shape[0]
+            noise_rows = (parallel.batch_rows(b).start, b * parallel.world_size())
         optimizer.zero_grad()
         out = model(
             target_neut_avgtex=full["neut_avgtex"],
@@ -74,14 +86,18 @@ def make_train_step(
             output_set=output_set,
             generator=generator,
             noise=noise,
+            noise_rows=noise_rows,
             **{k: full[k] for k in BATCH_MODEL_KEYS},
         )
         total, terms = compute_losses(out, full, loss_weights, vertmean, vertstd)
         if mark is not None:
             mark("forward")
         total.backward()
+        parallel.all_reduce_gradients(optimizer.params)
         if mark is not None:
             mark("backward")
+        means = parallel.all_reduce_mean({"total": total, **terms})
+        total, terms = means.pop("total"), means
         optimizer.step(state.step)
         state.step += 1
         if mark is not None:

@@ -72,6 +72,25 @@ Phases (each prints one line; any failure exits non-zero):
    ``[loop-steady]`` numbers; ``[capture-cli]`` runs ``cli.eval
    --holdout-cameras 1 --num-items 2``, ``cli.render --num-frames 1`` and
    ``cli.generate_id_cond`` on that checkpoint;
+6e. data-parallel training on configs/config-synthetic-262k.yaml (batch 4,
+   512x334 rays, 1024^2 textures, 262,144 primitives of 2^3: the two-stage
+   cull, both kernels at bs 2, the table scale 128 and motion_size 512):
+   ``[ddp-train]`` runs ``cli.train`` in this process for 3 steps, then
+   ``python -m torch.distributed.run --standalone --nproc_per_node 1
+   chip_smoke.py --ddp-child OUT -- ARGS`` twice (``mesh.multihost=true``: 2
+   steps, then a resume to 3); the launched process runs ``cli.train.main``
+   (what ``-m ava256_tpu_torch.cli.train`` runs) with its steps watched and
+   writes what it saw to OUT. Checked: NCCL with a world of 1, the group
+   left at the end, one gradient all-reduce and one launch of each kernel
+   per step, the resume, step 0's loss equal to the single process's
+   exactly and the later ones within DDP_LOSS_RTOL; printed: the losses and
+   their differences, the StepTimer ms and p50 of the steps that are not
+   first in their call, the peak GiB of each process, the seconds;
+   ``[262k-kernel]`` and ``[262k-kernel-bwd]`` hold the two kernels against
+   their plain versions on that configuration's scene (a batch rendered by
+   the model ``[ddp-train]`` trained), as phases 7 and 8 do on the
+   flagship's: the forward on every tile, the backward with the forward's
+   state on every 8th;
 7. forward kernel vs plain on the flagship scene, its second output (the
    rays' saturation state, which the training step saves for the backward)
    included, with the kernel's time with and without that output, the plain
@@ -118,7 +137,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ava256_tpu_torch import native
+from ava256_tpu_torch import native, parallel
 from ava256_tpu_torch.cli import eval as cli_eval
 from ava256_tpu_torch.cli import generate_id_cond as cli_idc
 from ava256_tpu_torch.cli import render as cli_render
@@ -590,10 +609,12 @@ class Watched:
 
     def __init__(self, cached=("avgtex",)):
         self.steps, self.timers = [], []  # (idindex, camindex, launches) per step
+        self.losses = []  # each step's returned loss, as floats after the run
         self.cached = cached  # fields the device tables hold, which a lean batch lacks
 
     def __enter__(self):
-        make, steps, timers = loop.make_train_step, self.steps, self.timers
+        make, steps, timers, losses = (loop.make_train_step, self.steps, self.timers,
+                                       self.losses)
 
         def counting_make_train_step(*args, **kwargs):
             step = make(*args, **kwargs)
@@ -606,6 +627,7 @@ class Watched:
                 out = step(state, batch, **kw)
                 steps.append((batch["idindex"], batch["camindex"],
                               tuple(b - a for a, b in zip(before, march_launches()))))
+                losses.append(out[1])
                 return out
 
             return counted
@@ -622,6 +644,7 @@ class Watched:
     def __exit__(self, *exc):
         loop.make_train_step, loop.StepTimer = self.saved
         self.steps[:] = [(i.tolist(), c.tolist(), n) for i, c, n in self.steps]
+        self.losses[:] = [float(x) for x in self.losses]
 
     def ms(self, call: int) -> list:
         """StepTimer ms of every step of the call-th run."""
@@ -984,15 +1007,151 @@ def capture_cli(dev: torch.device, work: Path, csv: Path, img_hw):
 
 
 # ---------------------------------------------------------------------------
+# phase 6e: data-parallel training on the 262,144-primitive configuration
+# ---------------------------------------------------------------------------
+
+CONFIG262K_YAML = "configs/config-synthetic-262k.yaml"
+DDP_FIRST_END, DDP_END = 2, 3  # the launched run: 2 steps, then a resume to 3
+# Step 0 of the launched run must equal the single process's exactly: the same
+# seed, batches and noise, the forward kernel has no atomics, and a mean over
+# one rank is exact. From step 1 on the parameters differ in their last bits:
+# the backward kernel sums over tiles with floating-point atomics, so two runs'
+# gradients differ by up to 6e-6 of their largest value ([flagship-kernel-bwd]
+# rerun_max_rel_diff), and Adam's first steps move a parameter by about
+# lr * sign(g), which such a difference flips where g is near zero. The limit
+# is the one [train] holds a repeated step to: 1e-4 relative.
+DDP_LOSS_RTOL = 1e-4
+GROUP_LINE = re.compile(r"Process group: backend (\S+), rank (\d+) of (\d+), on (\S+)")
+
+
+def ddp_child(out: Path, argv: list) -> int:
+    """The process that ``[ddp-train]`` starts under the launcher: ``cli.train``
+    (``cli.train.main(argv)``, what ``-m ava256_tpu_torch.cli.train`` runs)
+    with its steps watched, the result written to ``out`` as JSON."""
+    reset_march_launches()  # this path starts here
+    with LogLines() as log_lines, Watched() as watched:
+        state = cli_train.main(argv)
+    launches = march_launches()  # this path ends here
+    device = next(state.model.parameters()).device
+    out.write_text(json.dumps(dict(
+        step=state.step, losses=watched.losses, steptimer_ms=watched.ms(0),
+        step_launches=[s[2] for s in watched.steps], launches=launches,
+        groups=[m.groups() for ln in log_lines.lines if (m := GROUP_LINE.match(ln))],
+        resumed_at=[int(m.group(1)) for ln in log_lines.lines
+                    if (m := re.match(r"Resumed from .* at step (\d+)", ln))],
+        collectives=dict(parallel.COUNTS), group_left=not parallel.is_initialized(),
+        device=str(device), peak_gib=torch.cuda.max_memory_allocated(device) / 2**30)))
+    return 0
+
+
+def ddp_train(dev: torch.device, work: Path):
+    """[ddp-train]: cli.train on the 262k configuration at full width, one
+    process for 3 steps, then under the launcher (one process, NCCL) for 2
+    steps and a resume to 3; the launched run's losses against the single
+    process's. Returns (launches, the single run's state, the phase's numbers)."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_march_launches()  # the single process's path starts here
+    with Watched() as watched:
+        state = cli_train.main(["--config", CONFIG262K_YAML, "--device", str(dev),
+                                f"assets={work / 'assets'}", f"train.maxiter={DDP_END}",
+                                f"progress.output_path={work / 'run262k'}"])
+    launches = march_launches()  # and ends here
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    single_s = time.perf_counter() - t0
+    if state.step != DDP_END or [s[2] for s in watched.steps] != [(1, 1, 1)] * DDP_END:
+        raise AssertionError(f"ddp-train: single process at step {state.step}, launches "
+                             f"{[s[2] for s in watched.steps]}")
+    runs = []
+    for end in (DDP_FIRST_END, DDP_END):
+        out = work / f"ddp_{end}.json"
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+               "1", os.path.abspath(__file__), "--ddp-child", str(out), "--", "--config",
+               CONFIG262K_YAML, "--device", dev.type, f"assets={work / 'assets'}",
+               f"train.maxiter={end}", "mesh.multihost=true",
+               f"progress.output_path={work / 'run262k_ddp'}"]
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        if res.returncode != 0 or not out.is_file():
+            raise AssertionError(f"ddp-train: the launched run to step {end} exited "
+                                 f"{res.returncode}:\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+        runs.append(json.loads(out.read_text()))
+    seconds = time.perf_counter() - t0
+    first, resumed = runs
+    group = ["nccl" if dev.type == "cuda" else "gloo", "0", "1", str(dev)]
+    for run, steps in ((first, DDP_FIRST_END), (resumed, DDP_END - DDP_FIRST_END)):
+        if run["groups"] != [group] or not run["group_left"]:
+            raise AssertionError(f"ddp-train: process group {run['groups']}, left "
+                                 f"{run['group_left']}")
+        if run["collectives"]["all_reduce_gradients"] < steps or \
+                run["step_launches"] != [[1, 1, 1]] * steps:
+            raise AssertionError(f"ddp-train: {run['collectives']} and launches "
+                                 f"{run['step_launches']} in {steps} steps")
+    if (first["step"], resumed["step"], resumed["resumed_at"]) != (DDP_FIRST_END, DDP_END,
+                                                                    [DDP_FIRST_END]):
+        raise AssertionError(f"ddp-train: steps {first['step']}, {resumed['step']}, resumed at "
+                             f"{resumed['resumed_at']}")
+    single, launched = watched.losses, first["losses"] + resumed["losses"]
+    if not all(np.isfinite(v) for v in single + launched):
+        raise AssertionError(f"ddp-train: losses {single} / {launched}")
+    if launched[0] != single[0]:
+        raise AssertionError(f"ddp-train: step 0 of the launched run {launched[0]!r} is not the "
+                             f"single process's {single[0]!r}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(launched[1:], single[1:])]
+    if max(rel) > DDP_LOSS_RTOL:
+        raise AssertionError(f"ddp-train: steps 1.. differ by {rel} (limit {DDP_LOSS_RTOL})")
+    ms = watched.ms(0)
+    steady = ms[1:] + first["steptimer_ms"][1:]  # not the first step of a call
+    log("ddp-train", config=CONFIG262K_YAML, backend=group[0], world=1, steps_single=DDP_END,
+        steps_launched=f"{DDP_FIRST_END}+{DDP_END - DDP_FIRST_END}",
+        losses_single=single, losses_launched=launched, step0_equal=True,
+        loss_rel_diff_step1=rel[0], loss_rel_diff_step2_resumed=rel[1], tol=DDP_LOSS_RTOL,
+        grad_allreduces=[first["collectives"]["all_reduce_gradients"],
+                         resumed["collectives"]["all_reduce_gradients"]],
+        steptimer_ms_single=ms, steptimer_ms_launched=first["steptimer_ms"],
+        steptimer_ms_resumed=resumed["steptimer_ms"],
+        steptimer_p50_ms_steady=round(float(np.median(steady)), 3), steady_steps=len(steady),
+        peak_gib_single=round(peak_gib, 3),
+        peak_gib_launched=[round(first["peak_gib"], 3), round(resumed["peak_gib"], 3)],
+        fwd_launches=launches[0] + first["launches"][0] + resumed["launches"][0],
+        bwd_launches=launches[1] + first["launches"][1] + resumed["launches"][1],
+        single_process_s=round(single_s, 3), seconds=round(seconds, 3))
+    total = tuple(a + b + c for a, b, c in zip(launches, first["launches"], resumed["launches"]))
+    return total, state
+
+
+def kernel_262k(model, dev: torch.device):
+    """[262k-kernel]: both kernels against their plain versions on the 262k
+    configuration's scene (a batch of its dataset rendered by the model
+    [ddp-train] trained: 262,144 primitives of 2^3, culled in two stages)."""
+    cfg = load_config(CONFIG262K_YAML)
+    ds = loop.build_dataset(cfg)
+    bsz = int(cfg.train.batchsize)
+    b = Uploader(dev).now(loop.to_model_batch(none_collate([ds[i] for i in range(bsz)])))
+    model.eval()
+    with torch.inference_mode():
+        mi = model(target_neut_avgtex=b["neut_avgtex"], target_neut_verts=b["neut_verts"],
+                   idindex=b["idindex"], camindex=b["camindex"], deterministic=True,
+                   output_set=frozenset({"march_inputs"}),
+                   **{k: b[k] for k in BATCH_MODEL_KEYS})["march_inputs"]
+    n, K = mi["primpos"].shape[:2]
+    if (K, mi["template"].shape[2]) != (cfg.model.nprims, cfg.model.primsize):
+        raise AssertionError(f"262k-kernel: scene of {K} primitives of {mi['template'].shape}")
+    rm = cfg.model.raymarch
+    args, state, plain_state, boxes, samples, k = flagship_kernel(
+        mi, dev, "262k-kernel", tile=rm.tile, max_hit=rm.max_hit)
+    kb = flagship_kernel_bwd(args, state, plain_state, boxes, samples, dev, "262k-kernel-bwd")
+    return k, kb
+
+
+# ---------------------------------------------------------------------------
 # phases 7 and 8: the kernels vs plain on the flagship scene
 # ---------------------------------------------------------------------------
 
 
-def flagship_scene_args(mi, dev: torch.device):
-    """The march kernels' arguments on the flagship scene: the render's decoder
-    output and rays, culled as the op culls them. Returns (args of
-    ``rc.march_tiles``, gid [NT, MH] int64, valid [NT, MH])."""
-    f = FLAGSHIP
+def flagship_scene_args(mi, dev: torch.device, tile: int, max_hit: int):
+    """The march kernels' arguments on a scene: a render's decoder output and
+    rays, culled as the op culls them (in two stages at K >= 65,536).
+    Returns (args of ``rc.march_tiles``, gid [NT, MH] int64, valid [NT, MH])."""
     dt = float(mi["stepsize"])
     nbuf = rc.default_nbuf(dt)
     n, K = mi["primpos"].shape[:2]
@@ -1002,8 +1161,8 @@ def flagship_scene_args(mi, dev: torch.device):
         tmm = torch.stack([tmm[..., 0], torch.minimum(tmm[..., 1], tmm[..., 0] + nbuf * dt)], -1)
         pm = torch.ones((n, K), device=dev)
         t_o, t_d, t_mm, gid, valid, _, _ = rc.tile_and_cull(
-            mi["raypos"], mi["raydir"], tmm, mi["primpos"], mi["primscale"], pm, f["tile"],
-            f["max_hit"], dt)
+            mi["raypos"], mi["raydir"], tmm, mi["primpos"], mi["primscale"], pm, tile, max_hit,
+            dt)
         scal = rc.candidate_affines(mi["primpos"], mi["primrot"], mi["primscale"], gid, valid)
         args = (gid.to(torch.int32).contiguous(), scal, t_o, t_d, t_mm,
                 mi["template"].reshape(n * K, bs, bs, bs, 4).contiguous(), None, dt, 8.0, 8.0,
@@ -1011,16 +1170,17 @@ def flagship_scene_args(mi, dev: torch.device):
     return args, gid, valid
 
 
-def flagship_kernel(mi, dev: torch.device):
-    f = FLAGSHIP
+def flagship_kernel(mi, dev: torch.device, phase: str = "flagship-kernel",
+                    tile: int = FLAGSHIP["tile"], max_hit: int = FLAGSHIP["max_hit"]):
+    """The forward kernel against its plain version on every tile of a scene
+    (the flagship render's by default), timed."""
     dt = float(mi["stepsize"])
-    args, gid, valid = flagship_scene_args(mi, dev)
+    args, gid, valid = flagship_scene_args(mi, dev, tile, max_hit)
     t_o, nbuf, bs = args[2], args[10], args[5].shape[1]
     with torch.inference_mode():
         march_ms = cuda_ms(lambda: rc.mvp_raymarch_cuda(
             mi["raypos"], mi["raydir"], dt, mi["tminmax"], mi["primpos"], mi["primrot"],
-            mi["primscale"], mi["template"], tile=f["tile"], max_hit=f["max_hit"],
-            device=dev), reps=3)
+            mi["primscale"], mi["template"], tile=tile, max_hit=max_hit, device=dev), reps=3)
         kern, state = rc.march_tiles_kernel(*args, with_state=True)
         kernel_ms = cuda_ms(lambda: rc.march_tiles_kernel(*args), reps=5)
         state_ms = cuda_ms(lambda: rc.march_tiles_kernel(*args, with_state=True), reps=5)
@@ -1032,8 +1192,8 @@ def flagship_kernel(mi, dev: torch.device):
         plain_ms = (time.perf_counter() - t0) * 1e3
         if not torch.equal(rc.march_tiles_kernel(*args), kern):
             raise AssertionError("flagship scene: the output changes with the state output")
-    err = check_close("flagship scene", kern, plain)
-    state_err = check_close("flagship scene, saturation state", state, plain_state)
+    err = check_close(f"{phase} scene", kern, plain)
+    state_err = check_close(f"{phase} scene, saturation state", state, plain_state)
     saturated = float((plain_state[:, 3] > 0).float().mean())
 
     ntiles, mh = gid.shape
@@ -1045,7 +1205,7 @@ def flagship_kernel(mi, dev: torch.device):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = samples * OPS_PER_SAMPLE / FP32_OPS_PER_S * 1e3
     no_reuse_ms = ntiles * mh * bs**3 * 16 / HBM_BYTES_PER_S * 1e3
-    log("flagship-kernel", tiles=ntiles, max_hit=mh, nbuf=nbuf, valid_candidates=int(valid.sum()),
+    log(phase, tiles=ntiles, max_hit=mh, nbuf=nbuf, valid_candidates=int(valid.sum()),
         boxes=boxes, samples=samples, bytes=nbytes, max_abs_err=err,
         state_max_abs_err=state_err, saturated_rays=round(saturated, 4),
         kernel_ms=round(kernel_ms, 4), kernel_with_state_ms=round(state_ms, 4),
@@ -1057,8 +1217,9 @@ def flagship_kernel(mi, dev: torch.device):
         bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def flagship_kernel_bwd(args, state, plain_state, boxes: int, samples: int, dev: torch.device):
-    """args: the forward kernel's arguments on the flagship scene; state: its
+def flagship_kernel_bwd(args, state, plain_state, boxes: int, samples: int, dev: torch.device,
+                        phase: str = "flagship-kernel-bwd"):
+    """args: the forward kernel's arguments on a scene; state: its
     second output there, which only the backward kernel is given; plain_state:
     the plain forward's, which only the plain backward is given, so that the
     reference starts from nothing a kernel produced; samples: the (ray, row,
@@ -1088,7 +1249,7 @@ def flagship_kernel_bwd(args, state, plain_state, boxes: int, samples: int, dev:
                     for a, b in zip(run1, run2) if a is not None)
         for name, x in zip(("d_template", "d_warp", "d_affine"), run1):
             if x is not None and not bool(torch.isfinite(x).all()):
-                raise AssertionError(f"flagship backward: non-finite {name}")
+                raise AssertionError(f"{phase}: non-finite {name}")
         del run2
         kernel_ms = cuda_ms(kernel, reps=5)
         no_state = kernel(st=None)  # the wrapper runs the forward kernel for the state
@@ -1104,7 +1265,7 @@ def flagship_kernel_bwd(args, state, plain_state, boxes: int, samples: int, dev:
                                          state=some_plain_state)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-    errs = {name: check_grad(f"flagship backward {name}", a, b)
+    errs = {name: check_grad(f"{phase} {name}", a, b)
             for name, a, b in zip(("d_template", "d_warp", "d_affine"), sub, plain)
             if b is not None}
 
@@ -1117,7 +1278,7 @@ def flagship_kernel_bwd(args, state, plain_state, boxes: int, samples: int, dev:
     design_ops_ms = (fwd_samples * OPS_PER_SAMPLE + chained * OPS_PER_CHAINED_SAMPLE) \
         / FP32_OPS_PER_S * 1e3
     nsub = len(range(ntiles)[sel])
-    log("flagship-kernel-bwd", tiles=ntiles, samples=samples, marched_samples=fwd_samples,
+    log(phase, tiles=ntiles, samples=samples, marched_samples=fwd_samples,
         chained_samples=chained, bytes=nbytes, kernel_ms=round(kernel_ms, 4),
         kernel_without_state_ms=round(no_state_ms, 4), rerun_max_rel_diff=rerun,
         without_state_max_rel_diff=no_state_diff, plain_tiles=nsub,
@@ -1177,6 +1338,10 @@ def main() -> int:
         capture_launches = capture_train(dev, work, csv, img_hw, steady)
         torch.cuda.empty_cache()
         capture_cli_launches = capture_cli(dev, work, csv, img_hw)
+        torch.cuda.empty_cache()
+        ddp_launches, state262k = ddp_train(dev, work)
+        k262, kb262 = kernel_262k(state262k.model, dev)
+        del state262k
     torch.cuda.empty_cache()
     args, state, plain_state, boxes, samples, k = flagship_kernel(mi, dev)
     kb = flagship_kernel_bwd(args, state, plain_state, boxes, samples, dev)
@@ -1186,29 +1351,35 @@ def main() -> int:
         dict(name="mvp_march_fwd", route="cuda", source=src + "mvp_march_fwd.cu",
              replaces="ava256_tpu/ops/raymarch_pallas.py:831",
              launches=render_launches + train_launches[0] + loop_launches[0] + cli_launches[0]
-             + steady_launches[0] + capture_launches[0] + capture_cli_launches[0],
+             + steady_launches[0] + capture_launches[0] + capture_cli_launches[0]
+             + ddp_launches[0],
              launches_render=render_launches, launches_train=train_launches[0],
              launches_loop=loop_launches[0], launches_cli=cli_launches[0],
              launches_loop_steady=steady_launches[0], launches_capture_train=capture_launches[0],
-             launches_capture_cli=capture_cli_launches[0],
-             max_abs_err=max(small_err, k["max_abs_err"]),
+             launches_capture_cli=capture_cli_launches[0], launches_ddp_train=ddp_launches[0],
+             max_abs_err=max(small_err, k["max_abs_err"], k262["max_abs_err"]),
              ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
              library_ms=None,
              # ms is the kernel as a render calls it; a training step also asks
              # for the rays' saturation state
-             ms_with_state=k["ms_with_state"]),
+             ms_with_state=k["ms_with_state"],
+             # the same on the 262k configuration's scene (262,144 primitives of 2^3)
+             ms_262k=k262["ms"], ms_with_state_262k=k262["ms_with_state"],
+             plain_ms_262k=k262["plain_ms"], bound_ms_262k=k262["bound_ms"],
+             bound_by_262k=k262["bound_by"]),
         dict(name="mvp_march_bwd", route="cuda", source=src + "mvp_march_bwd.cu",
              replaces="ava256_tpu/ops/raymarch_pallas.py:908",
              launches=train_launches[1] + loop_launches[1] + cli_launches[1]
-             + steady_launches[1] + capture_launches[1] + capture_cli_launches[1],
+             + steady_launches[1] + capture_launches[1] + capture_cli_launches[1]
+             + ddp_launches[1],
              launches_train=train_launches[1], launches_loop=loop_launches[1],
              launches_cli=cli_launches[1], launches_loop_steady=steady_launches[1],
              launches_capture_train=capture_launches[1],
-             launches_capture_cli=capture_cli_launches[1],
+             launches_capture_cli=capture_cli_launches[1], launches_ddp_train=ddp_launches[1],
              # launches that were handed the forward's saved state (all of them)
              launches_with_state=train_launches[2] + loop_launches[2] + steady_launches[2]
-             + capture_launches[2],
-             max_abs_err=max(small_bwd_err, kb["max_abs_err"]), ms=kb["ms"],
+             + capture_launches[2] + ddp_launches[2],
+             max_abs_err=max(small_bwd_err, kb["max_abs_err"], kb262["max_abs_err"]), ms=kb["ms"],
              plain_ms=kb["plain_ms"], bound_ms=kb["bound_ms"], bound_by=kb["bound_by"],
              library_ms=None,
              # ms is the kernel on all tiles with the forward's saved state, as a
@@ -1218,7 +1389,13 @@ def main() -> int:
              tiles=kb["tiles"], plain_tiles=kb["plain_tiles"],
              ms_on_plain_tiles=kb["ms_on_plain_tiles"],
              ms_without_state=kb["ms_without_state"],
-             two_march_ops_ms=kb["two_march_ops_ms"])]}
+             two_march_ops_ms=kb["two_march_ops_ms"],
+             # the same on the 262k configuration's scene
+             ms_262k=kb262["ms"], plain_ms_262k=kb262["plain_ms"],
+             bound_ms_262k=kb262["bound_ms"], bound_by_262k=kb262["bound_by"],
+             tiles_262k=kb262["tiles"], plain_tiles_262k=kb262["plain_tiles"],
+             ms_on_plain_tiles_262k=kb262["ms_on_plain_tiles"],
+             ms_without_state_262k=kb262["ms_without_state"])]}
     log("done", seconds=round(time.perf_counter() - t_start, 3), ms_per_forward=fwd_ms,
         ms_per_train_step=step_ms)
     print(json.dumps(table))
@@ -1230,4 +1407,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-child"]:  # [ddp-train]'s launched process
+        sys.exit(ddp_child(Path(sys.argv[2]), sys.argv[4:]))
     sys.exit(main())

@@ -117,6 +117,46 @@ def test_bwd_kernel_matches_plain(card, bs, warp, tile, opaque):
         assert err <= BWD_TOL and cos > 0.99999, (name, err, cos)
 
 
+def scene_262k():
+    """K = 262,144 primitives of 2^3 (configs/config-synthetic-262k.yaml's
+    count and size) on a 64^3 grid, boxes about 10 grid steps wide, marched
+    in 64 rows over the grid's depth, dense enough that rays saturate."""
+    s = raymarch_scene(n=1, h=37, w=35, k3=64, bs=2, seed=5)
+    s["primscale"] = np.full_like(s["primscale"], 10.0)
+    s["template"][..., 3] *= 20.0
+    s["stepsize"] = 0.0125
+    tmm = s["tminmax"]
+    tmm[..., 0] = 3.6 + 0.01 * tmm[..., 0]
+    tmm[..., 1] = 4.4
+    return s
+
+
+def test_kernels_at_262144_primitives_of_2(card):
+    """Both kernels behind the op at the 262k configuration's primitive
+    count and size, culled in two stages (K >= 65,536), against the plain
+    versions; the backward is handed the forward's state."""
+    s = scene_262k()
+    K = s["primpos"].shape[1]
+    assert K == 262_144 and s["template"].shape[2] == 2
+    mask = torch.ones((1, K))
+    g = torch.from_numpy(np.random.RandomState(2).randn(1, 37, 35, 4).astype(np.float32))
+    kw = dict(fadescale=6.5, fadeexp=8.0, tile=16, max_hit=64, nbuf=64)
+    out_ref, ref = _op_grads(s, "cpu", mask, g, kw)
+    before = (rc.march_tiles_kernel.launches, rc.march_tiles_bwd_kernel.launches_with_state)
+    out, got = _op_grads(s, card, mask, g, kw)
+    torch.cuda.synchronize()
+    assert (rc.march_tiles_kernel.launches, rc.march_tiles_bwd_kernel.launches_with_state) == \
+        (before[0] + 1, before[1] + 1)
+    assert float(out_ref[..., 3].max()) > 0.1
+    np.testing.assert_allclose(out.cpu().numpy(), out_ref.numpy(), rtol=1e-5, atol=1e-5)
+    for name, a, b in zip(GRAD_NAMES[:4], got, ref):
+        a, b = a.cpu().double(), b.double()
+        assert torch.isfinite(a).all() and float(b.abs().max()) > 0, name
+        err = float((a - b).abs().max() / b.abs().max())
+        cos = float((a * b).sum() / torch.sqrt((a * a).sum() * (b * b).sum()))
+        assert err <= BWD_TOL and cos > 0.99999, (name, err, cos)
+
+
 def _tile_args(s, dev, tile, max_hit, nbuf=64, opaque=False):
     """The arguments of ``rc.march_tiles`` for a scene, culled as the op culls."""
     t = {k: torch.from_numpy(np.array(v)).to(dev) for k, v in s.items()
