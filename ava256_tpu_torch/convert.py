@@ -12,7 +12,7 @@ gives one). The port names its modules after the flax paths, so
 ``decoder_assembler.geodec.t0.weight`` and ``stats/.../adaptwarps`` the
 buffer of the same path. Layouts change by the owning module's type:
 
-- convs: HWIO -> OIHW;
+- convs (weight-normalized, plain and weight-standardized): HWIO -> OIHW;
 - transposed convs: the JAX kernel is a correlation over the stride-dilated
   input, so it is flipped in both spatial axes and becomes [in, out, kh, kw];
 - dense layers: [in, out] -> [out, in].
@@ -32,6 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ava256_tpu_torch.ops.extras import Conv2dWS
 from ava256_tpu_torch.ops.layers import Conv2d, Conv2dWN, ConvTranspose2dWN, Linear, LinearWN
 
 
@@ -49,7 +50,7 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
 def _to_torch_layout(module: nn.Module, leaf: str, x: np.ndarray) -> np.ndarray:
     if leaf != "weight":
         return x
-    if isinstance(module, (Conv2dWN, Conv2d)):
+    if isinstance(module, (Conv2dWN, Conv2d, Conv2dWS)):
         return x.transpose(3, 2, 0, 1)
     if isinstance(module, ConvTranspose2dWN):
         return x[::-1, ::-1].transpose(2, 3, 0, 1)

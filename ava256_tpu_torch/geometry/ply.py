@@ -10,6 +10,7 @@ read with one ``np.frombuffer`` (binary little- or big-endian) or one split
 
 from __future__ import annotations
 
+import io
 from typing import BinaryIO, Tuple, Union
 
 import numpy as np
@@ -90,3 +91,7 @@ def parse_ply_vertices(src: Union[bytes, BinaryIO]) -> np.ndarray:
     for i, (name, _) in enumerate(props):
         out[:, i] = rec[name]
     return out
+
+
+def parse_ply_vertices_from_bytesio(b: io.BytesIO) -> np.ndarray:
+    return parse_ply_vertices(b.getvalue())

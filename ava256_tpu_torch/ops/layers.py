@@ -65,7 +65,8 @@ def _uniform(shape, a: float) -> torch.Tensor:
 
 
 class _WeightNorm(nn.Module):
-    """Holds ``weight``, ``g`` (per output channel) and an optional ``bias``."""
+    """Holds ``weight``, ``g`` (per output channel) and an optional ``bias``;
+    ``g`` is None once ``fuse()`` has folded it into the weight."""
 
     channel_axis = 0
 
@@ -75,10 +76,18 @@ class _WeightNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
     def effective_weight(self) -> torch.Tensor:
+        if self.g is None:  # fused
+            return self.weight
         wnorm = torch.sqrt(torch.sum(self.weight**2))
         shape = [1] * self.weight.ndim
         shape[self.channel_axis] = -1
         return self.weight * (self.g / wnorm).reshape(shape)
+
+    def fuse(self) -> None:
+        """Fold ``g / ||weight||`` into the weight and drop ``g``."""
+        with torch.no_grad():
+            self.weight.copy_(self.effective_weight())
+        self.g = None
 
 
 class LinearWN(_WeightNorm):

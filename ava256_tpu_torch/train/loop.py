@@ -60,7 +60,7 @@ logger = logging.getLogger("ava256_tpu_torch.train")
 
 MODEL_BATCH_KEYS = set(BATCH_MODEL_KEYS) | {"idindex", "camindex", "image"}
 # model.raymarch.backend of the configs -> the port's backend
-BACKENDS = {"pallas": "cuda", "reference": "reference"}
+BACKENDS = {"pallas": "cuda", "xla": "xla", "reference": "reference"}
 
 
 # ---------------------------------------------------------------------------
@@ -112,10 +112,6 @@ def build_model(cfg: Config, dataset, uvdata, device, seed: int = 0):
     """The configured autoencoder on ``device``."""
     rm = dict(cfg.model.raymarch)
     backend = rm.pop("backend", "pallas")
-    if backend == "xla":
-        raise NotImplementedError(
-            "model.raymarch.backend 'xla' (the compacted marcher) is not ported yet "
-            "(ROADMAP Queue 1); use 'pallas' (the CUDA kernels) or 'reference'")
     if backend not in BACKENDS:
         raise ValueError(f"unknown model.raymarch.backend {backend!r}")
     if cfg.model.get("dtype") not in (None, "float32"):

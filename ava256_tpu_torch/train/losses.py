@@ -20,6 +20,10 @@ def mean_ell_1(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.abs(pred - gt))
 
 
+def mean_ell_2(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    return torch.mean((pred - gt) ** 2)
+
+
 def compute_losses(
     output: Dict[str, torch.Tensor],
     batch: Dict[str, torch.Tensor],

@@ -104,6 +104,23 @@ Phases (each prints one line; any failure exits non-zero):
    timed there too. The bound counts one evaluation of every sample the
    plain forward counted plus the chain of every chained sample.
 
+9. ``[xla-march]``: the compacted marcher (``ops/raymarch_xla.py``, plain
+   PyTorch: no kernel of its own) at full width on kbench's shell scene (4 x
+   512x334 rays, 16,384 primitives of 8^3), held to the CUDA kernels by
+   ``kbench.compare_with_kernels`` once max_hit and max_samples are raised
+   until both march the same samples (no culled tile full, no ray over its
+   budget); timed beside the CUDA op at the same settings, with the rays that
+   overflow at the flagship's max_hit 64 and max_samples 96 printed;
+   ``[xla-262k]``: whether it fits at 262,144 primitives of 2^3 (a forward,
+   then forward + backward; an out-of-memory error is reported);
+10. ``[xla-train]``: ``cli.train`` on the flagship yaml with
+   ``model.raymarch.backend=xla`` for 2 steps (finite losses, moved
+   parameters, no march kernel launched);
+11. ``[bench]``: ``python -m ava256_tpu_torch.bench`` at its defaults in a
+   child process, its JSON line printed under the tag (bench.py's keys,
+   finite values, one launch of each kernel per train step), then
+   ``[kbench]``: ``python -m ava256_tpu_torch.kbench --verify``.
+
 Tolerances, kernel vs plain. Forward: rtol = atol = 1e-5; both run the same
 fp32 operations in the same order (the kernels are built without FMA
 contraction); what is left is ulp-level rounding of expf and division.
@@ -111,6 +128,14 @@ Backward: max |d| <= BWD_TOL * max |ref| per gradient and cosine > 0.99999;
 the kernel's sums over rays, rows and tiles are atomic adds in an order the
 scheduler picks, the plain version's are index_add_ in another, so the two
 differ by the rounding of fp32 sums of up to a few thousand terms.
+The compacted marcher vs the kernels (the same samples): alpha at rtol =
+atol = 1e-4 on every ray; the images of the rays that saturate in neither
+(the two composite a saturating step by different rules) to 1e-4 of their
+largest value plus 1e-4; the gradients of a cotangent on those rays at
+cosine > 0.9999, the template's also at max |d| <= 1e-3 max |ref|. The two
+round a sample's place in its box differently, so a sample on a box face
+can be taken by one only; the geometric gradients' max |d| and the
+primitives beyond 1e-3 are printed as measured.
 The restored training step: loss terms within 1e-4 relative of the first
 take, parameters within 2.1 learning rates (Adam's first steps move a
 parameter by about lr * sign(g), and the backward's last bits are not
@@ -137,7 +162,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ava256_tpu_torch import native, parallel
+from ava256_tpu_torch import kbench, native, parallel
 from ava256_tpu_torch.cli import eval as cli_eval
 from ava256_tpu_torch.cli import generate_id_cond as cli_idc
 from ava256_tpu_torch.cli import render as cli_render
@@ -155,6 +180,7 @@ from ava256_tpu_torch.geometry.ply import parse_ply_vertices
 from ava256_tpu_torch.ops import raymarch_cuda as rc
 from ava256_tpu_torch.ops.cuda_lib import build_all
 from ava256_tpu_torch.ops.math3d import rodrigues
+from ava256_tpu_torch.ops.raymarch_xla import march_compacted
 from ava256_tpu_torch.render import BATCH_MODEL_KEYS, decode
 from ava256_tpu_torch.train import loop
 from ava256_tpu_torch.train.profiling import TRACE_FILE, StepTimer
@@ -1294,6 +1320,241 @@ def flagship_kernel_bwd(args, state, plain_state, boxes: int, samples: int, dev:
                 ms_without_state=no_state_ms, two_march_ops_ms=design_ops_ms)
 
 
+# ---------------------------------------------------------------------------
+# phases 9-11: the compacted marcher, its backend in training, the benchmark
+# ---------------------------------------------------------------------------
+
+XLA_COS, XLA_REL = 0.9999, 1e-3  # the compacted marcher's gradients vs the kernels'
+XLA_MAX_HIT_CAP, XLA_MAX_SAMPLES_CAP = 1024, 8192
+# tiles x samples per checkpointed chunk: 8x mvp_raymarch_xla's defaults (64
+# tiles x 128), fewer chunks for the same peak order (~11 GiB with gradients)
+XLA_CHUNK_SAMPLES = 8 * 64 * 128
+
+
+def xla_march(dev: torch.device):
+    """[xla-march]: the compacted marcher on the card at full width, on
+    kbench's shell scene (4 x 512x334 rays, 16,384 primitives of 8^3), held
+    to the CUDA kernels by ``kbench.compare_with_kernels``. max_hit is raised
+    until neither cull fills a tile and max_samples until no ray overflows:
+    the two then march the same samples. Timed: forward, forward + backward
+    (CUDA events, the gradients of primpos, primrot, primscale and template),
+    peak GiB, beside the CUDA op at the same settings."""
+    s = kbench.make_flagship_scene()
+    t = kbench.scene_tensors(s, dev)
+    dt, tile = s["stepsize"], FLAGSHIP["tile"]
+    rp, rd, tmm = t["raypos"], t["raydir"], t["tminmax"]
+    leaves = ("primpos", "primrot", "primscale", "template")
+
+    def overflow(max_hit, max_samples):
+        with torch.no_grad():
+            return int(march_compacted(
+                rp, rd, dt, tmm, *(t[k] for k in leaves[:3]), t["template"], tile=tile,
+                max_hit=max_hit, max_samples=max_samples,
+                chunk_tiles=max(1, XLA_CHUNK_SAMPLES // max_samples))[1])
+
+    # the flagship configuration's own settings, for information
+    overflow_cfg = overflow(FLAGSHIP["max_hit"], 96)
+    max_hit = FLAGSHIP["max_hit"]
+    while kbench.truncated_tiles(t, dt, tile, max_hit):
+        if max_hit >= XLA_MAX_HIT_CAP:
+            raise AssertionError(f"xla-march: a cull still fills a tile at max_hit {max_hit}")
+        max_hit *= 2
+    max_samples = 96
+    while overflow(max_hit, max_samples):
+        if max_samples >= XLA_MAX_SAMPLES_CAP:
+            raise AssertionError(f"xla-march: rays still overflow at max_samples {max_samples}")
+        max_samples *= 2
+    chunk = max(1, XLA_CHUNK_SAMPLES // max_samples)
+    rep = kbench.compare_with_kernels(t, dt, tile=tile, max_hit=max_hit,
+                                      max_samples=max_samples, chunk_tiles=chunk)
+    if rep["truncated_tiles"] or rep["overflow_rays"]:
+        raise AssertionError(f"xla-march: the two did not march the same samples: {rep}")
+    # alpha elementwise; the images of the free rays to 1e-4 of their
+    # largest value plus 1e-4 (the port's image tolerance for whole models):
+    # a sample on a box face, taken by one of the two roundings only, moves
+    # a dim ray's colour by ~1e-4 (see kbench.compare_with_kernels)
+    image_lim = 1e-4 * rep["image_max_abs_ref_free"] + 1e-4
+    if rep["alpha_beyond_1e-4"] or rep["image_max_abs_err_free"] > image_lim:
+        raise AssertionError(f"xla-march: images beyond 1e-4: {rep}")
+    # every gradient by its cosine; the template's also by max |d| (the
+    # geometric ones move with the face samples, printed as measured)
+    bad = {k: v for k, v in rep.items() if (k.endswith("_cos") and not v > XLA_COS)
+           or (k in ("grad_template_rel_err", "grad_warp_rel_err") and not v <= XLA_REL)}
+    if bad:
+        raise AssertionError(f"xla-march: gradients beyond cosine {XLA_COS} / max |d| "
+                             f"{XLA_REL} max |ref|: {bad}")
+
+    def fwd_xla(*x):
+        return march_compacted(rp, rd, dt, tmm, *x[:3], x[3], tile=tile, max_hit=max_hit,
+                               max_samples=max_samples, chunk_tiles=chunk)[0]
+
+    def fwd_cuda(*x):
+        return rc.mvp_raymarch_cuda(rp, rd, dt, tmm, *x[:3], x[3], tile=tile, max_hit=max_hit,
+                                    nbuf=rep["nbuf"], device=dev)
+
+    def grad(fwd):
+        x = [t[k].detach().requires_grad_() for k in leaves]
+        return torch.autograd.grad(torch.sum(fwd(*x)), x)
+
+    # both ran at these settings in the comparison: no warm-up call here
+    times = {}
+    for name, fwd, reps in (("xla", fwd_xla, 1), ("cuda_op", fwd_cuda, 3)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with torch.no_grad():
+            times[f"{name}_fwd_ms"] = cuda_ms(lambda: fwd(*(t[k] for k in leaves)), reps=reps)
+        times[f"{name}_fwd_bwd_ms"] = cuda_ms(lambda: grad(fwd), reps=reps)
+        times[f"{name}_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    log("xla-march", scene="kbench shell 4x512x334, 16384 x 8^3", tile=tile, max_hit=max_hit,
+        max_samples=max_samples, chunk_tiles=chunk, overflow_rays=rep["overflow_rays"],
+        overflow_rays_at_config_max_samples_96_max_hit_64=overflow_cfg,
+        **{k: round(v, 3) for k, v in times.items()},
+        image_limit_free=image_lim,
+        **{k: v for k, v in rep.items() if k not in ("overflow_rays",)})
+    return dict(times, max_hit=max_hit, max_samples=max_samples, overflow_cfg=overflow_cfg,
+                free_share=rep["free_share"])
+
+
+def xla_262k(dev: torch.device) -> dict:
+    """[xla-262k]: whether the compacted marcher fits at 262,144 primitives:
+    kbench's shell scene with 2^3 boxes at the 262k configuration's tile,
+    max_hit, max_samples and chunk_tiles, a forward and then a forward +
+    backward. Its cull holds [tiles, K] tensors (2,688 x 262,144 here): an
+    out-of-memory error is the answer, reported with the peak, not raised
+    (the configuration runs on the CUDA kernels)."""
+    rm = load_config(CONFIG262K_YAML).model.raymarch
+    s = kbench.make_flagship_scene(nprims=262144, boxsize=2)
+    t = kbench.scene_tensors(s, dev)
+    leaves = ("primpos", "primrot", "primscale", "template")
+    opts = dict(tile=rm.tile, max_hit=rm.max_hit, max_samples=rm.max_samples,
+                chunk_tiles=rm.chunk_tiles)
+    res = {}
+    for what in ("forward", "forward_backward"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        try:
+            x = [t[k].detach().requires_grad_(what != "forward") for k in leaves]
+            with torch.set_grad_enabled(what != "forward"):
+                out, over = march_compacted(t["raypos"], t["raydir"], s["stepsize"],
+                                            t["tminmax"], *x[:3], x[3], **opts)
+            if what != "forward":
+                torch.autograd.grad(torch.sum(out), x)
+            torch.cuda.synchronize()
+            res[what] = dict(fits=True, seconds=round(time.perf_counter() - t0, 3),
+                             overflow_rays=int(over))
+        except torch.OutOfMemoryError as err:
+            res[what] = dict(fits=False, error=str(err).splitlines()[0][:160])
+        res[what]["peak_gib"] = round(torch.cuda.max_memory_allocated(dev) / 2**30, 3)
+        x = out = over = None
+    log("xla-262k", scene="kbench shell 4x512x334, 262144 x 2^3", **opts,
+        **{k: json.dumps(v) for k, v in res.items()})
+    return res
+
+
+def xla_train(dev: torch.device, work: Path):
+    """[xla-train]: cli.train on the flagship yaml with
+    ``model.raymarch.backend=xla`` for 2 steps: finite losses, moved
+    parameters, no march kernel launched (the compacted marcher is PyTorch);
+    printed: the StepTimer ms and p50, the peak GiB and the overflow warnings
+    at the yaml's max_samples (96)."""
+    argv = ["--config", FLAGSHIP_YAML, "--device", str(dev), f"assets={work / 'assets'}",
+            f"progress.output_path={work / 'xla_run'}", "model.raymarch.backend=xla",
+            "train.maxiter=2"]
+    first = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_march_launches()  # this path starts here
+    t0 = time.perf_counter()
+    with LogLines() as log_lines, Watched() as watched:
+        make = loop.make_train_step
+
+        def keep_first(model, *args, **kwargs):
+            first["params"] = [p.detach().clone() for p in model.parameters()]
+            return make(model, *args, **kwargs)
+
+        loop.make_train_step = keep_first
+        try:
+            state = cli_train.main(argv)
+        finally:
+            loop.make_train_step = make
+    launches = march_launches()  # this path ends here
+    seconds = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    if state.model.raymarcher.backend != "xla" or state.step != 2 or len(watched.steps) != 2:
+        raise AssertionError(f"xla-train: backend {state.model.raymarcher.backend}, step "
+                             f"{state.step}, {len(watched.steps)} steps")
+    if launches != (0, 0, 0):
+        raise AssertionError(f"xla-train: the xla backend launched march kernels: {launches}")
+    if not all(np.isfinite(v) for v in watched.losses):
+        raise AssertionError(f"xla-train: losses {watched.losses}")
+    params = list(state.model.parameters())
+    if not all(bool(torch.isfinite(p).all()) for p in params) or all(
+            torch.equal(p.detach(), q) for p, q in zip(params, first["params"])):
+        raise AssertionError("xla-train: non-finite or unchanged parameters")
+    over = [int(m.group(1)) for ln in log_lines.lines
+            if (m := re.match(r"mvp_raymarch_xla: (\d+) rays exceeded", ln))]
+    ms = watched.ms(0)
+    log("xla-train", config=FLAGSHIP_YAML, backend="xla", steps=2, losses=watched.losses,
+        steptimer_ms=ms, steptimer_p50_ms=round(float(np.median(ms)), 3),
+        overflow_warnings=len(over), overflow_rays_per_march=over, peak_gib=round(peak_gib, 3),
+        fwd_launches=launches[0], bwd_launches=launches[1], seconds=round(seconds, 3))
+    return launches, float(np.median(ms))
+
+
+def child_json(cmd, phase: str, timeout: int = 600) -> list:
+    """Run ``cmd`` from the checkout's root; the JSON lines of its stdout."""
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    if res.returncode != 0:
+        raise AssertionError(f"{phase}: {' '.join(cmd)} exited {res.returncode}:\n"
+                             f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    return [json.loads(ln) for ln in res.stdout.splitlines() if ln.startswith("{")]
+
+
+def numbers(x) -> list:
+    if isinstance(x, dict):
+        return [v for item in x.values() for v in numbers(item)]
+    if isinstance(x, list):
+        return [v for item in x for v in numbers(item)]
+    return [x] if isinstance(x, (int, float)) and not isinstance(x, bool) else []
+
+
+BENCH_TIMING = ("steps", "blocked_s", "pipelined_s", "chained_s", "blocked_median_s",
+                "pipelined_median_s", "chained_mean_s", "noop_roundtrip_s", "noop_chained_s",
+                "device")
+BENCH_RAYMARCH = ("fwd_s", "bwd_s", "bwd_over_fwd", "mrays_per_s_fwd", "x_hbm_speed_of_light",
+                  "cull_s", "candidates", "alpha_mean", "scene")
+
+
+def bench_phase():
+    """[bench]: ``python -m ava256_tpu_torch.bench`` at its defaults in a
+    child process (its JSON line printed under the tag), then ``python -m
+    ava256_tpu_torch.kbench --verify`` (the kernels against the oracle on the
+    reduced scene; it exits 1 if they disagree). Returns the bench's line."""
+    t0 = time.perf_counter()
+    line, = child_json([sys.executable, "-m", "ava256_tpu_torch.bench"], "bench")
+    seconds = time.perf_counter() - t0
+    if set(line) != {"metric", "value", "unit", "vs_baseline", "timing", "raymarch"} or \
+            line["metric"] != "train_steps_per_sec_per_chip_b4_512x334" or \
+            any(k not in line["timing"] for k in BENCH_TIMING) or \
+            any(k not in line["raymarch"] for k in BENCH_RAYMARCH):
+        raise AssertionError(f"bench: keys of {line}")
+    if not all(np.isfinite(v) for v in numbers(line)) or not line["value"] > 0:
+        raise AssertionError(f"bench: values of {line}")
+    steps = line["timing"]["steps"]
+    if line["timing"]["march_launches"] != [2 + 3 * steps] * 2:
+        raise AssertionError(f"bench: march launches {line['timing']['march_launches']} in "
+                             f"{2 + 3 * steps} steps")
+    print(f"[bench] {json.dumps(line)}", flush=True)
+    log("bench-run", seconds=round(seconds, 3))
+    t0 = time.perf_counter()
+    rep, verify = child_json([sys.executable, "-m", "ava256_tpu_torch.kbench", "--verify"],
+                             "kbench")
+    log("kbench", seconds=round(time.perf_counter() - t0, 3), report=json.dumps(rep),
+        verify=json.dumps(verify))
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1333,6 +1594,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         steady_launches, steady = flagship_loop_steady(dev, work, step_ms)
         torch.cuda.empty_cache()
+        xla_train_launches, xla_step_ms = xla_train(dev, work)
+        torch.cuda.empty_cache()
         csv = capture_write(work)
         img_hw = capture_io(work, csv)
         capture_launches = capture_train(dev, work, csv, img_hw, steady)
@@ -1345,6 +1608,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     args, state, plain_state, boxes, samples, k = flagship_kernel(mi, dev)
     kb = flagship_kernel_bwd(args, state, plain_state, boxes, samples, dev)
+    del args, state, plain_state, mi
+    torch.cuda.empty_cache()
+    xla = xla_march(dev)
+    torch.cuda.empty_cache()
+    xla_262k(dev)
+    torch.cuda.empty_cache()
+    bench_line = bench_phase()
+    bench_launches = bench_line["timing"]["march_launches"]
 
     src = "ava256_tpu_torch/csrc/"
     table = {"kernels": [
@@ -1352,11 +1623,12 @@ def main() -> int:
              replaces="ava256_tpu/ops/raymarch_pallas.py:831",
              launches=render_launches + train_launches[0] + loop_launches[0] + cli_launches[0]
              + steady_launches[0] + capture_launches[0] + capture_cli_launches[0]
-             + ddp_launches[0],
+             + ddp_launches[0] + xla_train_launches[0] + bench_launches[0],
              launches_render=render_launches, launches_train=train_launches[0],
              launches_loop=loop_launches[0], launches_cli=cli_launches[0],
              launches_loop_steady=steady_launches[0], launches_capture_train=capture_launches[0],
              launches_capture_cli=capture_cli_launches[0], launches_ddp_train=ddp_launches[0],
+             launches_xla_train=xla_train_launches[0], launches_bench=bench_launches[0],
              max_abs_err=max(small_err, k["max_abs_err"], k262["max_abs_err"]),
              ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
              library_ms=None,
@@ -1371,11 +1643,12 @@ def main() -> int:
              replaces="ava256_tpu/ops/raymarch_pallas.py:908",
              launches=train_launches[1] + loop_launches[1] + cli_launches[1]
              + steady_launches[1] + capture_launches[1] + capture_cli_launches[1]
-             + ddp_launches[1],
+             + ddp_launches[1] + xla_train_launches[1] + bench_launches[1],
              launches_train=train_launches[1], launches_loop=loop_launches[1],
              launches_cli=cli_launches[1], launches_loop_steady=steady_launches[1],
              launches_capture_train=capture_launches[1],
              launches_capture_cli=capture_cli_launches[1], launches_ddp_train=ddp_launches[1],
+             launches_xla_train=xla_train_launches[1], launches_bench=bench_launches[1],
              # launches that were handed the forward's saved state (all of them)
              launches_with_state=train_launches[2] + loop_launches[2] + steady_launches[2]
              + capture_launches[2] + ddp_launches[2],
@@ -1397,7 +1670,9 @@ def main() -> int:
              ms_on_plain_tiles_262k=kb262["ms_on_plain_tiles"],
              ms_without_state_262k=kb262["ms_without_state"])]}
     log("done", seconds=round(time.perf_counter() - t_start, 3), ms_per_forward=fwd_ms,
-        ms_per_train_step=step_ms)
+        ms_per_train_step=step_ms, xla_train_p50_ms=xla_step_ms,
+        xla_march_fwd_ms=round(xla["xla_fwd_ms"], 3),
+        bench_steps_per_s_per_chip=bench_line["value"])
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -401,3 +401,30 @@ def test_config4_march_on_captured_batches(card, tmp_path):
     assert (rc.march_tiles_kernel.launches, rc.march_tiles_bwd_kernel.launches) == \
         (before[0] + 1, before[1] + 1)
     _assert_grads(grads, plain, "config-4 on captures")
+
+
+def test_compacted_marcher_matches_the_kernels(card):
+    """The compacted marcher (``raymarch_xla``, plain PyTorch on the card)
+    against the CUDA kernels on the same samples, by
+    ``kbench.compare_with_kernels``: the alpha of every ray and the images of
+    the rays that saturate in neither (the two composite a saturating step
+    by different rules) at 1e-4, the gradients under a cotangent on those
+    rays at cosine > 0.9999 and max |d| <= 1e-3 max |ref|."""
+    from ava256_tpu_torch import kbench
+
+    s = raymarch_scene(n=2, h=37, w=35, k3=3, bs=8, warp=True, seed=8)
+    s["template"][..., 3] *= 1.6  # about a third of the rays saturate
+    s["primrot"] = rodrigues(torch.from_numpy(s["primrvec"])).numpy()
+    before = (rc.march_tiles_kernel.launches, rc.march_tiles_bwd_kernel.launches)
+    rep = kbench.compare_with_kernels(kbench.scene_tensors(s, card), s["stepsize"], tile=16,
+                                      max_hit=27, max_samples=512, chunk_tiles=8, fadescale=6.5)
+    assert (rc.march_tiles_kernel.launches, rc.march_tiles_bwd_kernel.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert rep["truncated_tiles"] == 0 and rep["overflow_rays"] == 0, rep
+    assert 0.3 < rep["free_share"] < 0.95, rep
+    assert rep["alpha_beyond_1e-4"] == 0 and rep["image_beyond_1e-4_free"] == 0, rep
+    for k, v in rep.items():
+        if k.endswith("_cos"):
+            assert v > 0.9999, (k, rep)
+        if k.startswith("grad_") and k.endswith("_rel_err"):
+            assert v <= 1e-3, (k, rep)
