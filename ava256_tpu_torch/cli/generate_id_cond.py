@@ -7,7 +7,9 @@
 ``generate_id_cond.py``: runs the identity encoder on each subject's neutral
 data and pickles its output (``z_geo`` / ``z_tex`` codes and the ``b_geo`` /
 ``b_tex`` bias pyramids, numpy arrays in the JAX package's NHWC layout, so a
-file from either package loads in the other) as ``{name}.pkl``.
+file from either package loads in the other) as ``{name}.pkl``. numpy has no
+bfloat16: a bfloat16 model's codes are written as float32, which holds them
+exactly.
 
     python -m ava256_tpu_torch.cli.generate_id_cond \\
         --config configs/config-synthetic-flagship.yaml --checkpoint RUN/checkpoints \\
@@ -37,6 +39,8 @@ def _to_numpy(tree):
         return {k: _to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_numpy(v) for v in tree)
+    if tree.dtype == torch.bfloat16:
+        tree = tree.float()
     return tree.detach().cpu().numpy()
 
 

@@ -40,9 +40,15 @@ def get_autoencoder(
     raymarch_options: Optional[Dict[str, Any]] = None,
     device="cuda",
     seed: int = 0,
+    dtype: Optional[torch.dtype] = None,
 ) -> Autoencoder:
     """Build the autoencoder on ``device`` (CUDA unless the caller asks for
     the CPU), its weights drawn from a generator seeded with ``seed``.
+    ``dtype`` (None or ``torch.bfloat16``) is the activations' compute dtype
+    in the encoders, the bottleneck, the decoders and the background model,
+    as the JAX factory's; parameters and the march stay float32, and so does
+    the colour calibration, which runs on the march's output (JAX's takes
+    the dtype and does not use it).
 
     uvdata: uv_idx / uv_bary [3, M, M], uv_coord, uv_tri, tri (see
     ``data.synthetic.synthetic_uvdata``). vertmean [V, 3], vertstd scalar.
@@ -56,19 +62,21 @@ def get_autoencoder(
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = Autoencoder(
-            identity_encoder=IdentityEncoder(uvdata["uv_idx"], uvdata["uv_bary"], wsize=128),
-            expression_encoder=ExpressionEncoder(uvdata["uv_idx"], uvdata["uv_bary"]),
-            bottleneck=VAEBottleneck(64, 16),
+            identity_encoder=IdentityEncoder(uvdata["uv_idx"], uvdata["uv_bary"], wsize=128,
+                                             dtype=dtype),
+            expression_encoder=ExpressionEncoder(uvdata["uv_idx"], uvdata["uv_bary"],
+                                                 dtype=dtype),
+            bottleneck=VAEBottleneck(64, 16, dtype=dtype),
             decoder_assembler=DecoderAssembler(
                 vt=np.asarray(uvdata["uv_coord"], dtype=np.float32),
                 vi=np.asarray(uvdata["tri"], dtype=np.int32),
                 vti=np.asarray(uvdata["uv_tri"], dtype=np.int32),
                 idxim=uvdata["uv_idx"], barim=uvdata["uv_bary"],
                 vertmean=np.asarray(vertmean, dtype=np.float32), vertstd=float(vertstd),
-                volradius=volradius, nprims=nprims, primsize=primsize),
+                volradius=volradius, nprims=nprims, primsize=primsize, dtype=dtype),
             raymarcher=Raymarcher(volradius, dt=rm_opts.pop("dt", 1.0),
                                   backend=raymarch_backend, **rm_opts),
             colorcal=Colorcal(ncams, nident) if colorcal else None,
-            bgmodel=BackgroundModelSimple(ncams, nident) if bgmodel else None,
+            bgmodel=BackgroundModelSimple(ncams, nident, dtype=dtype) if bgmodel else None,
         )
     return model.to(device)

@@ -1,0 +1,108 @@
+# Copyright (c) ava256_tpu contributors.
+# All rights reserved.
+#
+# This source code is licensed under the license found in the
+# LICENSE file in the root directory of this source tree.
+"""The flagship convergence runs, float32 against bfloat16, and a bfloat16 run
+killed mid-step and resumed, as the JAX package's ``docs/dtype_r5.md`` and
+``docs/convergence_r5.md`` ran them:
+
+    python -m ava256_tpu_torch.flagship_runs OUT [--device cuda] [OVERRIDES...]
+
+Three ``python -m ava256_tpu_torch.cli.train --config
+configs/config-synthetic-flagship.yaml assets=OUT/assets train.maxiter=600
+train.checkpoint_every=100`` runs side by side on one card, each logging to
+``OUT/<arm>/train.log``:
+
+- ``fp32``: as configured;
+- ``bf16``: with ``model.dtype=bfloat16``;
+- ``bf16-resume``: the bf16 command, killed with SIGKILL in step 467, once
+  step 466 has logged its loss, then launched again unchanged: it resumes
+  from the checkpoint of step 400 and runs steps 401-466 once more,
+  appending to the same log (``scripts/resume_check.py`` pairs them).
+
+The topology is ``data.synthetic.write_topology_obj``'s, the UV maps are
+built once into ``OUT/cache`` before the runs start. The runs share the card,
+so their step times are not the port's speed (``chip_smoke.py``'s
+``[dtype-turns]`` times the two dtypes); their losses and PSNR probes are
+what the runs are for. Exits non-zero if a run fails or the kill did not
+land in step 467.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import signal
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+CONFIG = "configs/config-synthetic-flagship.yaml"
+ARMS = {"fp32": [], "bf16": ["model.dtype=bfloat16"],
+        "bf16-resume": ["model.dtype=bfloat16"]}
+STEPS, KILL_AFTER, CHECKPOINT_EVERY = 600, 466, 100
+
+
+def _command(out: Path, arm: str, device: str, opts: list) -> list:
+    return [sys.executable, "-m", "ava256_tpu_torch.cli.train", "--config", CONFIG,
+            "--device", device, f"assets={out / 'assets'}", f"progress.output_path={out / arm}",
+            f"train.maxiter={STEPS}", f"train.checkpoint_every={CHECKPOINT_EVERY}"] \
+        + ARMS[arm] + opts
+
+
+def _start(cmd: list, log: Path, env: dict) -> subprocess.Popen:
+    with open(log, "a") as fh:
+        return subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT, env=env)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("out", type=Path)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("opts", nargs="*", help="more dotted overrides for every run")
+    args = ap.parse_args(argv)
+    out = args.out.resolve()
+    env = dict(os.environ, AVA256_CACHE_DIR=str(out / "cache"))
+    os.environ["AVA256_CACHE_DIR"] = env["AVA256_CACHE_DIR"]
+
+    from ava256_tpu_torch.config import load_config
+    from ava256_tpu_torch.data.synthetic import write_topology_obj
+    from ava256_tpu_torch.train.loop import load_uvdata
+
+    write_topology_obj(out / "assets" / "face_topology.obj")
+    load_uvdata(load_config(CONFIG, [f"assets={out / 'assets'}"] + args.opts))
+    procs, cmds = {}, {}
+    for arm in ARMS:
+        (out / arm).mkdir(parents=True, exist_ok=True)
+        cmds[arm] = _command(out, arm, args.device, args.opts)
+        procs[arm] = _start(cmds[arm], out / arm / "train.log", env)
+
+    # the kill: in the step after KILL_AFTER, once its loss line is written
+    log = out / "bf16-resume" / "train.log"
+    mark = f"Iteration {KILL_AFTER} loss ="
+    while mark not in log.read_text(errors="replace"):
+        if procs["bf16-resume"].poll() is not None:
+            print(f"bf16-resume ended (rc {procs['bf16-resume'].returncode}) before step "
+                  f"{KILL_AFTER}", file=sys.stderr)
+            return 1
+        time.sleep(0.02)
+    time.sleep(0.1)
+    procs["bf16-resume"].send_signal(signal.SIGKILL)
+    procs["bf16-resume"].wait()
+    killed_at = log.read_text(errors="replace").count("Iteration ")
+    print(f"bf16-resume: SIGKILL after {killed_at} logged steps; relaunched", flush=True)
+    procs["bf16-resume"] = _start(cmds["bf16-resume"], log, env)
+
+    rcs = {arm: p.wait() for arm, p in procs.items()}
+    print(f"runs ended: {rcs}", flush=True)
+    if killed_at != KILL_AFTER + 1:
+        print(f"the kill landed after {killed_at} logged steps, not in step "
+              f"{KILL_AFTER + 1}", file=sys.stderr)
+        return 1
+    return 0 if not any(rcs.values()) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

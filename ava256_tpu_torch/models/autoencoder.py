@@ -6,7 +6,12 @@
 """Full volumetric autoencoder, as in ``ava256_tpu.models.autoencoder``:
 identity-encode (or cached id_cond) -> expression-encode -> VAE bottleneck
 -> decode (assemble primitives -> raymarch -> color calibration ->
-background). Images are NHWC at the interface."""
+background). Images are NHWC at the interface.
+
+The modules' compute dtype (``factory.get_autoencoder(dtype=...)``) leaves
+the march in float32, as in JAX: the decoders hand it float32 primitives and
+template, and the rendered image is float32.
+"""
 
 from __future__ import annotations
 

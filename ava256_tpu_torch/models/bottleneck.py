@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ava256_tpu_torch.ops.layers import Conv2dWN, nchw_to_nhwc, nhwc_to_nchw
+from ava256_tpu_torch.ops.layers import Conv2dWN, nchw_to_nhwc, nhwc_to_nchw, weak
 
 
 def kl_loss_stable(mu: torch.Tensor, logstd: torch.Tensor) -> torch.Tensor:
@@ -27,12 +27,12 @@ def kl_loss_stable(mu: torch.Tensor, logstd: torch.Tensor) -> torch.Tensor:
 
 class VAEBottleneck(nn.Module):
     def __init__(self, in_dim: int = 64, out_dim: int = 16, mean_squash: float = 0.1,
-                 std_squash: float = 0.01):
+                 std_squash: float = 0.01, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.mean_squash = mean_squash
         self.std_squash = std_squash
-        self.mu = Conv2dWN(in_dim, out_dim, 1)
-        self.logstd = Conv2dWN(in_dim, out_dim, 1)
+        self.mu = Conv2dWN(in_dim, out_dim, 1, dtype=dtype)
+        self.logstd = Conv2dWN(in_dim, out_dim, 1, dtype=dtype)
 
     def forward(self, x: torch.Tensor, deterministic: bool = False,
                 generator: Optional[torch.Generator] = None,
@@ -41,13 +41,15 @@ class VAEBottleneck(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """x [N, H, W, C] -> (z, mu, logstd), each [N, H, W, out_dim].
         ``deterministic`` gives z = mu; otherwise z = mu + exp(logstd) * noise,
-        with ``noise`` given or drawn from ``generator``. ``noise_rows`` =
+        with ``noise`` given or drawn from ``generator`` in logstd's dtype. ``noise_rows`` =
         (first, total): x holds rows [first, first + N) of a global batch of
         ``total``, and the draw is the global batch's, of which these rows
         are kept."""
         xc = nhwc_to_nchw(x)
-        mu = nchw_to_nhwc(self.mu(xc)) * self.mean_squash
-        logstd = nchw_to_nhwc(self.logstd(xc)) * self.std_squash
+        mu = nchw_to_nhwc(self.mu(xc))
+        mu = mu * weak(self.mean_squash, mu)
+        logstd = nchw_to_nhwc(self.logstd(xc))
+        logstd = logstd * weak(self.std_squash, logstd)
         if deterministic:
             return mu, mu, logstd
         if noise is None:

@@ -19,6 +19,10 @@ per-primitive position, rotation and scale).
    (``tbn_frames``).
 6. Apply the SRT residuals, ramped by ``residuals_weight``.
 7. RGB decoder -> colours; template = [relu(rgb * 25 + 100), relu(alpha)].
+
+With a compute ``dtype`` the decoders' towers and residuals run in it; the
+vertex mean is rounded to the code's dtype, as JAX takes it, and the
+vertices, the position map, the primitives and the template are float32.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from torch import nn
 from ava256_tpu_torch.models.decoders.geometry import GeometryDecoder
 from ava256_tpu_torch.models.decoders.rgb import RGBDecoder
 from ava256_tpu_torch.ops.geomap import generate_geomap
-from ava256_tpu_torch.ops.layers import remat
+from ava256_tpu_torch.ops.layers import remat, weak
 from ava256_tpu_torch.ops.math3d import rodrigues
 from ava256_tpu_torch.parallel import all_reduce_max_
 
@@ -79,7 +83,8 @@ def tbn_frames(postex: torch.Tensor, nh: int, s: int) -> torch.Tensor:
 class DecoderAssembler(nn.Module):
     def __init__(self, vt: np.ndarray, vi: np.ndarray, vti: np.ndarray, idxim: np.ndarray,
                  barim: np.ndarray, vertmean: np.ndarray, vertstd: float, volradius: float,
-                 nprims: int = 128 * 128, primsize: Tuple[int, int, int] = (8, 8, 8)):
+                 nprims: int = 128 * 128, primsize: Tuple[int, int, int] = (8, 8, 8),
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         nh = int(np.sqrt(nprims))
         if nh * nh != nprims:
@@ -91,12 +96,12 @@ class DecoderAssembler(nn.Module):
         self.vertstd, self.volradius = float(vertstd), float(volradius)
         imsize = nh * primsize[1]
         self.rgbdec = RGBDecoder(imsize=imsize, nboxes=nprims, boxsize=primsize[0], outch=3,
-                                 viewcond=True)
+                                 viewcond=True, dtype=dtype)
         self.geodec = GeometryDecoder(
             uv=vt, tri=vi, uvtri=vti, nvtx=int(np.asarray(vertmean).shape[-2]),
             motion_size={256: 16, 16384: 128}.get(nprims, nh),
             geo_size=256 if imsize > 256 else imsize // 2, imsize=imsize, nboxes=nprims,
-            boxsize=primsize[0])
+            boxsize=primsize[0], dtype=dtype)
         self.register_buffer("idxim", torch.as_tensor(np.asarray(idxim), dtype=torch.int64),
                              persistent=False)
         self.register_buffer("barim", torch.as_tensor(np.asarray(barim), dtype=torch.float32),
@@ -121,10 +126,11 @@ class DecoderAssembler(nn.Module):
         # adaptwarps update below is outside them and runs once
         opacity, geo, pos_resid, rvec_resid, scale_resid = remat(
             self.geodec, expr_encoding, id_cond["z_geo"], id_cond["b_geo"])
-        geo = geo * self.vertstd + self.vertmean
+        vertmean = self.vertmean.to(expr_encoding.dtype)
+        geo = geo * self.vertstd + vertmean
         predicted_geo = geo
         if gt_geo is not None:
-            geo = gt_geo * self.vertstd + self.vertmean
+            geo = gt_geo * self.vertstd + vertmean
 
         postex = generate_geomap(geo, self.idxim, self.barim) / self.volradius
         primpos = postex[:, c::s, c::s, :].reshape(n, K, 3)
@@ -155,9 +161,11 @@ class DecoderAssembler(nn.Module):
         primrot = tbn_frames(postex, nh, s)
 
         rw = min(max(float(residuals_weight), 0.0), 1.0)
-        primpos = primpos + pos_resid * rw
-        primrot = torch.einsum("nkij,nkjl->nkil", primrot, rodrigues(rvec_resid * rw))
-        primscale = primscale * (scale_resid * rw + (1.0 - rw))
+        primpos = primpos + pos_resid * weak(rw, pos_resid)
+        rot_resid = rodrigues(rvec_resid * weak(rw, rvec_resid)).to(primrot.dtype)
+        primrot = torch.einsum("nkij,nkjl->nkil", primrot, rot_resid)
+        primscale = primscale * (scale_resid * weak(rw, scale_resid)
+                                 + weak(1.0 - rw, scale_resid))
 
         viewdirs = viewpos / torch.sqrt(torch.sum(viewpos**2, dim=1, keepdim=True))
         primrgb = remat(self.rgbdec, expr_encoding, id_cond["z_tex"], id_cond["b_tex"],

@@ -12,7 +12,7 @@ motion map at ``motion_size`` (one SRT residual per primitive) and a
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,7 +20,7 @@ from torch import nn
 
 from ava256_tpu_torch.ops.grid_sample import grid_sample_2d
 from ava256_tpu_torch.ops.layers import (
-    LEAKY_GAIN, Conv2dWN, ConvTranspose2dWN, leaky_relu, nchw_to_nhwc, nhwc_to_nchw)
+    LEAKY_GAIN, Conv2dWN, ConvTranspose2dWN, leaky_relu, nchw_to_nhwc, nhwc_to_nchw, weak)
 
 
 def vertex_uv_coords(uv: np.ndarray, tri: np.ndarray, uvtri: np.ndarray,
@@ -52,7 +52,8 @@ def tower_sizes(imsize: int, inch: int, boxsize: int) -> List[int]:
 
 def add_bias(xx: torch.Tensor, id_bias: List[torch.Tensor]) -> torch.Tensor:
     """(xx + b) / sqrt(2) with the NHWC pyramid level of xx's size and
-    channel count, or xx where none matches."""
+    channel count, or xx where none matches. The float32 pyramid promotes a
+    bfloat16 xx to float32, as in JAX; the next layer casts it back."""
     for b in id_bias:
         if b.shape[1] == xx.shape[2] and b.shape[-1] == xx.shape[1]:
             return (xx + nhwc_to_nchw(b)) * (1.0 / np.sqrt(2.0))
@@ -61,23 +62,25 @@ def add_bias(xx: torch.Tensor, id_bias: List[torch.Tensor]) -> torch.Tensor:
 
 class GeometryDecoder(nn.Module):
     def __init__(self, uv: np.ndarray, tri: np.ndarray, uvtri: np.ndarray, nvtx: int,
-                 motion_size: int, geo_size: int, imsize: int, nboxes: int, boxsize: int):
+                 motion_size: int, geo_size: int, imsize: int, nboxes: int, boxsize: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.motion_size, self.geo_size = motion_size, geo_size
         self.imsize, self.nboxes, self.boxsize = imsize, nboxes, boxsize
         sizes = tower_sizes(imsize, 32, boxsize)
         self.nlayers = len(sizes) - 1
-        self.encmod = Conv2dWN(16, 16, 1, gain=LEAKY_GAIN)
+        self.encmod = Conv2dWN(16, 16, 1, gain=LEAKY_GAIN, dtype=dtype)
         for i in range(self.nlayers):
             last = i == self.nlayers - 1
             setattr(self, f"t{i}", ConvTranspose2dWN(sizes[i], sizes[i + 1], 4, 2, 1,
-                                                     gain=1.0 if last else LEAKY_GAIN))
+                                                     gain=1.0 if last else LEAKY_GAIN,
+                                                     dtype=dtype))
         # level i outputs 8 * 2^i pixels
         ch_at = {8 * 2**i: sizes[i + 1] for i in range(self.nlayers)}
-        self.motion0 = Conv2dWN(ch_at[motion_size], 64, 1, gain=LEAKY_GAIN)
-        self.motion1 = Conv2dWN(64, 9, 1)
-        self.geo0 = Conv2dWN(ch_at[geo_size], 64, 1, gain=LEAKY_GAIN)
-        self.geo1 = Conv2dWN(64, 3, 1)
+        self.motion0 = Conv2dWN(ch_at[motion_size], 64, 1, gain=LEAKY_GAIN, dtype=dtype)
+        self.motion1 = Conv2dWN(64, 9, 1, dtype=dtype)
+        self.geo0 = Conv2dWN(ch_at[geo_size], 64, 1, gain=LEAKY_GAIN, dtype=dtype)
+        self.geo1 = Conv2dWN(64, 3, 1, dtype=dtype)
         self.slab_bias = nn.Parameter(torch.zeros(imsize, imsize, boxsize))
         self.register_buffer(
             "vert_coords",
@@ -89,7 +92,9 @@ class GeometryDecoder(nn.Module):
                 id_bias: List[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
         """ex_enc/id_enc [N, 4, 4, 16], id_bias NHWC pyramid (deepest first).
         Returns opacity [N, K, bs, bs, bs, 1], geo [N, nvtx, 3], and the
-        primpos / primrvec / primscale residuals [N, K, 3]."""
+        primpos / primrvec / primscale residuals [N, K, 3]. Opacity and geo
+        are float32 (the float32 slab bias and sampling grid promote them, as
+        in JAX), the residuals in the compute dtype."""
         n = ex_enc.shape[0]
         z = leaky_relu(self.encmod(nhwc_to_nchw(ex_enc)))
         x = torch.cat([z, nhwc_to_nchw(id_enc)], dim=1)
@@ -108,9 +113,10 @@ class GeometryDecoder(nn.Module):
         opacity_slab = torch.exp((x + self.slab_bias[None]) * 0.1)
 
         mot = nchw_to_nhwc(mot).reshape(n, self.nboxes, 9)
-        primposresid = mot[..., 0:3] * 0.01
-        primrvecresid = mot[..., 3:6] * 0.01
-        primscaleresid = torch.exp(0.01 * mot[..., 6:9])
+        c = weak(0.01, mot)
+        primposresid = mot[..., 0:3] * c
+        primrvecresid = mot[..., 3:6] * c
+        primscaleresid = torch.exp(c * mot[..., 6:9])
 
         coords = self.vert_coords[None].expand(n, -1, -1, -1)
         geo = torch.mean(grid_sample_2d(nchw_to_nhwc(geo_map), coords, align_corners=False),

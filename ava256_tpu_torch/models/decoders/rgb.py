@@ -23,26 +23,28 @@ from ava256_tpu_torch.ops.layers import (
 
 class RGBDecoder(nn.Module):
     def __init__(self, imsize: int, nboxes: int, boxsize: int, outch: int = 3,
-                 viewcond: bool = True):
+                 viewcond: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.imsize, self.nboxes, self.boxsize, self.outch = imsize, nboxes, boxsize, outch
         self.viewcond = viewcond
         sizes = tower_sizes(imsize, 32 + (8 if viewcond else 0), boxsize * outch)
         self.nlayers = len(sizes) - 1
-        self.encmod = Conv2dWN(16, 16, 1, gain=LEAKY_GAIN)
+        self.encmod = Conv2dWN(16, 16, 1, gain=LEAKY_GAIN, dtype=dtype)
         if viewcond:
-            self.viewmod0 = LinearWN(3, 16, gain=LEAKY_GAIN)
-            self.viewmod1 = LinearWN(16, 8 * 4 * 4, gain=LEAKY_GAIN)
+            self.viewmod0 = LinearWN(3, 16, gain=LEAKY_GAIN, dtype=dtype)
+            self.viewmod1 = LinearWN(16, 8 * 4 * 4, gain=LEAKY_GAIN, dtype=dtype)
         for i in range(self.nlayers):
             last = i == self.nlayers - 1
             setattr(self, f"t{i}", ConvTranspose2dWN(sizes[i], sizes[i + 1], 4, 2, 1,
-                                                     gain=1.0 if last else LEAKY_GAIN))
+                                                     gain=1.0 if last else LEAKY_GAIN,
+                                                     dtype=dtype))
         self.slab_bias = nn.Parameter(torch.zeros(imsize, imsize, boxsize * outch))
 
     def forward(self, ex_code: torch.Tensor, id_code: torch.Tensor,
                 id_biases: List[torch.Tensor], view: Optional[torch.Tensor]) -> torch.Tensor:
         """ex_code/id_code [N, 4, 4, 16], id_biases NHWC texture pyramid,
-        view [N, 3] unit view direction -> [N, K, bs, bs, bs, outch]."""
+        view [N, 3] unit view direction -> [N, K, bs, bs, bs, outch], float32
+        (the float32 slab bias promotes it, as in JAX)."""
         n = ex_code.shape[0]
         z = leaky_relu(self.encmod(nhwc_to_nchw(ex_code)))
         x = torch.cat([z, nhwc_to_nchw(id_code)], dim=1)

@@ -11,6 +11,7 @@ image; average texture minus neutral texture) through conv towers into a
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -28,7 +29,8 @@ class ExpressionEncoder(nn.Module):
     """uv_tidx/uv_bary: per-texel triangle corner indices and barycentrics
     [3, M, M]; the textures are M x M too."""
 
-    def __init__(self, uv_tidx: np.ndarray, uv_bary: np.ndarray, channel_mult: int = 1):
+    def __init__(self, uv_tidx: np.ndarray, uv_bary: np.ndarray, channel_mult: int = 1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         C = channel_mult
         self.register_buffer("uv_tidx", torch.as_tensor(np.asarray(uv_tidx), dtype=torch.int64),
@@ -40,9 +42,9 @@ class ExpressionEncoder(nn.Module):
         if n_down < 1 or 2 ** (n_down + 5) != imsize:
             raise ValueError(f"Unsupported image size: {imsize}")
         self.tex = ConvSeq(3, [_conv(16 * C), _conv(32 * C), _conv(64 * C)],
-                           final_activation=True)
+                           final_activation=True, dtype=dtype)
         self.geo = ConvSeq(3, [_conv(16 * C), _conv(32 * C), _conv(32 * C)],
-                           final_activation=True)
+                           final_activation=True, dtype=dtype)
         lead = [128 * C, 256 * C, 256 * C, 512 * C][: n_down - 1]
         self.comb = ConvSeq(
             96 * C,
@@ -53,6 +55,7 @@ class ExpressionEncoder(nn.Module):
                 _conv(64),
             ],
             final_activation=True,
+            dtype=dtype,
         )
 
     def forward(self, verts: torch.Tensor, avgtex: torch.Tensor, neut_verts: torch.Tensor,

@@ -12,7 +12,7 @@ pyramid level is sampled on its own here."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,15 +37,17 @@ def _nlayers(imsize: int) -> int:
 class UnetEncoder(nn.Module):
     """Downsampling encoder emitting a code and a bias pyramid (NCHW)."""
 
-    def __init__(self, imsize: int, channel_mult: int = 1):
+    def __init__(self, imsize: int, channel_mult: int = 1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.nlayers = _nlayers(imsize)
         esize = [_ESIZE[0]] + [c * channel_mult for c in _ESIZE[1: self.nlayers + 1]]
         for i in range(self.nlayers):
             setattr(self, f"b{i}", Conv2dWN(esize[i], _BSIZE[i], 1,
-                                            gain=LEAKY_GAIN if i > 0 else 1.0))
-            setattr(self, f"e{i}", Conv2dWN(esize[i], esize[i + 1], 4, 2, 1, gain=LEAKY_GAIN))
-        self.enc = Conv2dWN(esize[self.nlayers], 16, 1)
+                                            gain=LEAKY_GAIN if i > 0 else 1.0, dtype=dtype))
+            setattr(self, f"e{i}", Conv2dWN(esize[i], esize[i + 1], 4, 2, 1, gain=LEAKY_GAIN,
+                                            dtype=dtype))
+        self.enc = Conv2dWN(esize[self.nlayers], 16, 1, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         biases: List[torch.Tensor] = []
@@ -60,14 +62,12 @@ class GeoTexCombiner(nn.Module):
     """Cross-talk between the geometry and texture pyramids via 1x1 convs.
     ``channels`` lists each level's channel count, deepest first."""
 
-    def __init__(self, channels: List[int]):
+    def __init__(self, channels: List[int], dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.nlevels = len(channels)
         for i, ch in enumerate(channels):
-            setattr(self, f"t2g{i}", Conv2dWN(ch, ch, 1, gain=LEAKY_GAIN))
-            setattr(self, f"g2t{i}", Conv2dWN(ch, ch, 1, gain=LEAKY_GAIN))
-            setattr(self, f"g{i}", Conv2dWN(2 * ch, ch, 1, gain=LEAKY_GAIN))
-            setattr(self, f"t{i}", Conv2dWN(2 * ch, ch, 1, gain=LEAKY_GAIN))
+            for name, cin in (("t2g", ch), ("g2t", ch), ("g", 2 * ch), ("t", 2 * ch)):
+                setattr(self, f"{name}{i}", Conv2dWN(cin, ch, 1, gain=LEAKY_GAIN, dtype=dtype))
 
     def forward(self, b_geo: List[torch.Tensor], b_tex: List[torch.Tensor]):
         out_geo, out_tex = [], []
@@ -82,7 +82,8 @@ class GeoTexCombiner(nn.Module):
 
 
 class IdentityEncoder(nn.Module):
-    def __init__(self, uv_tidx: np.ndarray, uv_bary: np.ndarray, wsize: int = 128):
+    def __init__(self, uv_tidx: np.ndarray, uv_bary: np.ndarray, wsize: int = 128,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.register_buffer("uv_tidx", torch.as_tensor(np.asarray(uv_tidx), dtype=torch.int64),
                              persistent=False)
@@ -90,9 +91,9 @@ class IdentityEncoder(nn.Module):
                              persistent=False)
         imsize = self.uv_tidx.shape[-1]
         self.wsize = wsize
-        self.geo = UnetEncoder(imsize)
-        self.tex = UnetEncoder(imsize)
-        self.comb = GeoTexCombiner(list(reversed(_BSIZE[: _nlayers(imsize)])))
+        self.geo = UnetEncoder(imsize, dtype=dtype)
+        self.tex = UnetEncoder(imsize, dtype=dtype)
+        self.comb = GeoTexCombiner(list(reversed(_BSIZE[: _nlayers(imsize)])), dtype=dtype)
         self.warp_bias = nn.Parameter(torch.zeros(1, wsize, wsize, 2))
         xs = np.linspace(-1.0, 1.0, wsize, dtype=np.float32)
         xg, yg = np.meshgrid(xs, xs)
@@ -102,7 +103,9 @@ class IdentityEncoder(nn.Module):
     def forward(self, neut_verts: torch.Tensor, neut_avgtex: torch.Tensor
                 ) -> Dict[str, object]:
         """neut_verts [N, V, 3], neut_avgtex [N, M, M, 3] -> {"z_geo", "z_tex":
-        [N, 4, 4, 16], "b_geo", "b_tex": NHWC bias pyramids, deepest first}."""
+        [N, 4, 4, 16], "b_geo", "b_tex": NHWC bias pyramids, deepest first}.
+        The codes come out in the compute dtype, the pyramids in float32:
+        the warp's float32 sampling weights promote them, as in JAX."""
         geo_img = generate_geomap(neut_verts, self.uv_tidx, self.uv_bary)
         # the UNets and the warp sampling are recomputed in the backward pass
         z_geo, b_geo = remat(self.geo, nhwc_to_nchw(geo_img))

@@ -12,6 +12,9 @@
   antialiasing (``jax.image.resize(..., "bilinear", antialias=False)``); at
   the border the JAX kernel renormalizes its weights, which is the same as
   ``F.interpolate``'s clamp of the source coordinate.
+
+Dtypes follow JAX's promotion: a bfloat16 image sampled on a float32 grid
+gives float32 (JAX multiplies the bfloat16 corners by float32 weights).
 """
 
 from __future__ import annotations
@@ -25,8 +28,9 @@ import torch.nn.functional as F
 def grid_sample_2d(img: torch.Tensor, grid: torch.Tensor,
                    align_corners: bool = False) -> torch.Tensor:
     """img [N, H, W, C], grid [N, Ho, Wo, 2] with (x, y) in [-1, 1]
-    -> [N, Ho, Wo, C]."""
-    out = F.grid_sample(img.permute(0, 3, 1, 2), grid, mode="bilinear",
+    -> [N, Ho, Wo, C], in the promoted dtype of img and grid."""
+    dtype = torch.promote_types(img.dtype, grid.dtype)
+    out = F.grid_sample(img.permute(0, 3, 1, 2).to(dtype), grid.to(dtype), mode="bilinear",
                         padding_mode="zeros", align_corners=align_corners)
     return out.permute(0, 2, 3, 1)
 

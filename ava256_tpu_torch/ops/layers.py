@@ -17,12 +17,20 @@ Weights use PyTorch layouts: ``[out, in]`` for dense layers, OIHW for convs
 and ``[in, out, kh, kw]`` for transposed convs. ``convert.py`` maps the JAX
 package's HWIO / ``[in, out]`` trees onto them. The modules take NCHW; the
 model modules keep NHWC at their public boundary and permute once inside.
+
+``dtype`` (None or ``torch.bfloat16``) is the compute dtype, as the JAX
+layers' flax ``dtype``: parameters stay float32; the input is cast to
+``dtype``, the effective weight is cast after its float32 norm, the product
+or convolution runs and is rounded in ``dtype``, and only then is the bias,
+cast to ``dtype``, added (two roundings, as JAX's; fused into the op it
+would be one). In float32 the bias stays fused into the op.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Sequence, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -47,8 +55,32 @@ def remat(fn, *args):
     return fn(*args)
 
 
+@functools.lru_cache(maxsize=None)
+def _rounded(c: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(c, dtype=dtype))
+
+
+def weak(c: float, x: torch.Tensor) -> float:
+    """The Python scalar ``c`` as JAX applies it to ``x``: a weakly typed
+    constant takes x's dtype first, so against bfloat16 it is rounded to
+    bfloat16 (PyTorch would compute with the unrounded value)."""
+    return c if x.element_size() >= 4 else _rounded(float(c), x.dtype)
+
+
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
-    return torch.where(x >= 0, x, negative_slope * x)
+    return torch.where(x >= 0, x, weak(negative_slope, x) * x)
+
+
+def _affine(x: torch.Tensor, dtype: Optional[torch.dtype], weight: torch.Tensor,
+            bias: Optional[torch.Tensor], op: Callable, bias_shape=(-1,)) -> torch.Tensor:
+    """``op(x, weight, bias)`` at JAX's rounding points for ``dtype``; the
+    bias is viewed as ``bias_shape`` against op's output."""
+    if dtype is not None:
+        x = x.to(dtype)
+    if x.dtype == weight.dtype:
+        return op(x, weight, bias)
+    y = op(x, weight.to(x.dtype), None)
+    return y if bias is None else y + bias.to(x.dtype).reshape(bias_shape)
 
 
 def _as_pair(v: Union[int, Tuple[int, int]]) -> Tuple[int, int]:
@@ -70,7 +102,9 @@ class _WeightNorm(nn.Module):
 
     channel_axis = 0
 
-    def _init_params(self, weight: torch.Tensor, out_features: int, bias: bool):
+    def _init_params(self, weight: torch.Tensor, out_features: int, bias: bool,
+                     dtype: Optional[torch.dtype]):
+        self.dtype = dtype
         self.weight = nn.Parameter(weight)
         self.g = nn.Parameter(torch.sqrt(torch.sum(weight**2)) * torch.ones(out_features))
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
@@ -94,13 +128,13 @@ class LinearWN(_WeightNorm):
     """Weight-normalized dense layer. Input [..., in] -> [..., out]."""
 
     def __init__(self, in_features: int, out_features: int, gain: float = 1.0,
-                 bias: bool = True):
+                 bias: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
         a = _xavier_bound(gain, in_features, out_features, 1)
-        self._init_params(_uniform((out_features, in_features), a), out_features, bias)
+        self._init_params(_uniform((out_features, in_features), a), out_features, bias, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.effective_weight(), self.bias)
+        return _affine(x, self.dtype, self.effective_weight(), self.bias, F.linear)
 
 
 class Conv2dWN(_WeightNorm):
@@ -110,17 +144,20 @@ class Conv2dWN(_WeightNorm):
                  kernel_size: Union[int, Tuple[int, int]] = 1,
                  strides: Union[int, Tuple[int, int]] = 1,
                  padding: Union[int, Tuple[int, int]] = 0,
-                 gain: float = 1.0, bias: bool = True):
+                 gain: float = 1.0, bias: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
         kh, kw = _as_pair(kernel_size)
         self.stride = _as_pair(strides)
         self.padding = _as_pair(padding)
         a = _xavier_bound(gain, in_features, out_features, kh * kw)
         self._init_params(_uniform((out_features, in_features, kh, kw), a),
-                          out_features, bias)
+                          out_features, bias, dtype)
+
+    def _op(self, x, w, b):
+        return F.conv2d(x, w, b, self.stride, self.padding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.effective_weight(), self.bias, self.stride, self.padding)
+        return _affine(x, self.dtype, self.effective_weight(), self.bias, self._op, (-1, 1, 1))
 
 
 class ConvTranspose2dWN(_WeightNorm):
@@ -133,7 +170,7 @@ class ConvTranspose2dWN(_WeightNorm):
                  kernel_size: Union[int, Tuple[int, int]] = 4,
                  strides: Union[int, Tuple[int, int]] = 2,
                  padding: Union[int, Tuple[int, int]] = 1,
-                 gain: float = 1.0, bias: bool = True):
+                 gain: float = 1.0, bias: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
         kh, kw = _as_pair(kernel_size)
         sh, sw = self.stride = _as_pair(strides)
@@ -145,25 +182,28 @@ class ConvTranspose2dWN(_WeightNorm):
             w = base.repeat_interleave(sh, dim=2).repeat_interleave(sw, dim=3)
         else:
             w = _uniform((in_features, out_features, kh, kw), a)
-        self._init_params(w, out_features, bias)
+        self._init_params(w, out_features, bias, dtype)
+
+    def _op(self, x, w, b):
+        return F.conv_transpose2d(x, w, b, self.stride, self.padding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(x, self.effective_weight(), self.bias, self.stride,
-                                  self.padding)
+        return _affine(x, self.dtype, self.effective_weight(), self.bias, self._op, (-1, 1, 1))
 
 
 class Linear(nn.Module):
     """Plain dense layer with the Xavier-uniform init (no weight norm)."""
 
     def __init__(self, in_features: int, out_features: int, gain: float = 1.0,
-                 bias: bool = True):
+                 bias: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
         a = _xavier_bound(gain, in_features, out_features, 1)
+        self.dtype = dtype
         self.weight = nn.Parameter(_uniform((out_features, in_features), a))
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        return _affine(x, self.dtype, self.weight, self.bias, F.linear)
 
 
 class Conv2d(nn.Module):
@@ -173,17 +213,21 @@ class Conv2d(nn.Module):
                  kernel_size: Union[int, Tuple[int, int]] = 1,
                  strides: Union[int, Tuple[int, int]] = 1,
                  padding: Union[int, Tuple[int, int]] = 0,
-                 gain: float = 1.0, bias: bool = True):
+                 gain: float = 1.0, bias: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
         kh, kw = _as_pair(kernel_size)
         self.stride = _as_pair(strides)
         self.padding = _as_pair(padding)
         a = _xavier_bound(gain, in_features, out_features, kh * kw)
+        self.dtype = dtype
         self.weight = nn.Parameter(_uniform((out_features, in_features, kh, kw), a))
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
+    def _op(self, x, w, b):
+        return F.conv2d(x, w, b, self.stride, self.padding)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
+        return _affine(x, self.dtype, self.weight, self.bias, self._op, (-1, 1, 1))
 
 
 class ConvSeq(nn.Module):
@@ -197,7 +241,7 @@ class ConvSeq(nn.Module):
     """
 
     def __init__(self, in_features: int, specs: Sequence[dict],
-                 final_activation: bool = False):
+                 final_activation: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.acts = []
         self.names = []
@@ -210,7 +254,7 @@ class ConvSeq(nn.Module):
             counts[cls.__name__] += 1
             kwargs = {k: v for k, v in spec.items() if k not in ("transpose", "features")}
             setattr(self, name, cls(ch, spec["features"], gain=LEAKY_GAIN if act else 1.0,
-                                    **kwargs))
+                                    dtype=dtype, **kwargs))
             self.names.append(name)
             self.acts.append(act)
             ch = spec["features"]
@@ -233,6 +277,6 @@ def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = [
-    "LEAKY_GAIN", "leaky_relu", "LinearWN", "Conv2dWN", "ConvTranspose2dWN",
+    "LEAKY_GAIN", "weak", "leaky_relu", "LinearWN", "Conv2dWN", "ConvTranspose2dWN",
     "Linear", "Conv2d", "ConvSeq", "nhwc_to_nchw", "nchw_to_nhwc",
 ]

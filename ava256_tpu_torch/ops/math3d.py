@@ -5,11 +5,14 @@
 # LICENSE file in the root directory of this source tree.
 """Small 3D math ops, as in ``ava256_tpu.ops.math3d``: Rodrigues vectors to
 matrices (with the 1e-5 epsilon under the square root that keeps the zero
-vector differentiable), quaternions to matrices and vector normalization."""
+vector differentiable; in bfloat16 it is rounded to bfloat16, as JAX
+takes it), quaternions to matrices and vector normalization."""
 
 from __future__ import annotations
 
 import torch
+
+from ava256_tpu_torch.ops.layers import weak
 
 
 def normalize(v: torch.Tensor, dim: int = -1, eps: float = 0.0) -> torch.Tensor:
@@ -21,7 +24,7 @@ def normalize(v: torch.Tensor, dim: int = -1, eps: float = 0.0) -> torch.Tensor:
 
 def rodrigues(rvec: torch.Tensor) -> torch.Tensor:
     """Rodrigues rotation vectors [..., 3] -> rotation matrices [..., 3, 3]."""
-    theta = torch.sqrt(1e-5 + torch.sum(rvec**2, dim=-1))
+    theta = torch.sqrt(weak(1e-5, rvec) + torch.sum(rvec**2, dim=-1))
     r = rvec / theta[..., None]
     costh = torch.cos(theta)
     sinth = torch.sin(theta)

@@ -871,7 +871,7 @@ class _Raymarch(torch.autograd.Function):
         scal = candidate_affines(primpos, primrot, primscale, gid32.long(), cand_valid)
         # tile the cotangent like the forward's rays
         pad = (0, 0, 0, meta["wp"] - meta["w"], 0, meta["hp"] - meta["h"])
-        g_tiles = tile_view(torch.nn.functional.pad(g.to(torch.float32), pad), cfg["tile"])
+        g_tiles = tile_view(torch.nn.functional.pad(g, pad), cfg["tile"])
         d_tpl, d_wrp, d_aff = march_tiles_bwd(
             gid32, scal, t_o, t_d, t_mm, g_tiles,
             template.reshape(n * K, bs, bs, bs, 4).contiguous(),

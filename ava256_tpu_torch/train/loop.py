@@ -61,6 +61,8 @@ logger = logging.getLogger("ava256_tpu_torch.train")
 MODEL_BATCH_KEYS = set(BATCH_MODEL_KEYS) | {"idindex", "camindex", "image"}
 # model.raymarch.backend of the configs -> the port's backend
 BACKENDS = {"pallas": "cuda", "xla": "xla", "reference": "reference"}
+# model.dtype of the configs -> the activations' compute dtype (None: float32)
+DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
 
 
 # ---------------------------------------------------------------------------
@@ -109,13 +111,17 @@ def load_uvdata(cfg: Config) -> Dict[str, np.ndarray]:
 
 
 def build_model(cfg: Config, dataset, uvdata, device, seed: int = 0):
-    """The configured autoencoder on ``device``."""
+    """The configured autoencoder on ``device``. ``model.dtype: bfloat16``
+    computes the activations of the encoders and decoders in bfloat16, as
+    the JAX package's ``train.py`` does; any value other than that, float32
+    or none is refused (JAX would quietly run float32)."""
     rm = dict(cfg.model.raymarch)
     backend = rm.pop("backend", "pallas")
     if backend not in BACKENDS:
         raise ValueError(f"unknown model.raymarch.backend {backend!r}")
-    if cfg.model.get("dtype") not in (None, "float32"):
-        raise NotImplementedError(f"model.dtype {cfg.model.dtype!r}: the port runs float32")
+    if cfg.model.get("dtype") not in DTYPES:
+        raise ValueError(f"unknown model.dtype {cfg.model.dtype!r}: the port takes "
+                         "float32 or bfloat16")
     return get_autoencoder(
         uvdata,
         vertmean=dataset.vertmean,
@@ -131,6 +137,7 @@ def build_model(cfg: Config, dataset, uvdata, device, seed: int = 0):
         raymarch_options=rm,
         device=device,
         seed=seed,
+        dtype=DTYPES[cfg.model.get("dtype")],
     )
 
 

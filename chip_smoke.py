@@ -50,6 +50,19 @@ Phases (each prints one line; any failure exits non-zero):
    7 traced; printed: the StepTimer p50 of untraced steps that are not the
    first of their call, warm-up and normal, and a normal step's device-busy
    share (the traced step's kernel time over the untraced steps' wall time);
+6c'. ``model.dtype=bfloat16`` on the flagship: ``[bf16-train]`` runs
+   ``cli.train`` as phases 6 and 6c together (2 steps from scratch, then a
+   resume to step 10, step 7 traced; one launch of each kernel per step, a
+   bfloat16 model with float32 parameters, finite losses, moved parameters;
+   the kernels refuse any input but float32 and int32); ``[bf16-cli]`` runs
+   ``cli.eval``, ``cli.render`` and ``cli.generate_id_cond`` on its
+   checkpoint; ``[dtype-turns]`` resumes the float32 and the bfloat16 step-10
+   checkpoints for 12 more steps each, in the order fp32, bf16, bf16, fp32,
+   and prints each dtype's StepTimer p50 over 22 steps; ``[bf16-repeat]``
+   steps twice from one checkpoint on one batch, then twice under
+   ``torch.use_deterministic_algorithms(True, warn_only=True)``, and prints
+   how far the results lie apart and which operations PyTorch names as
+   nondeterministic;
 6d. the capture-data path (``configs/config-4.yaml``): ``[capture-write]``
    writes 4 identities of the synthetic dataset as captures in the ava-256
    release's on-disk layout (``data.synthetic.write_capture``: 4 cameras,
@@ -152,6 +165,7 @@ import logging
 import os
 import pickle
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -186,7 +200,7 @@ from ava256_tpu_torch.train import loop
 from ava256_tpu_torch.train.profiling import TRACE_FILE, StepTimer
 from ava256_tpu_torch.train.state import (
     TrainState, latest_checkpoint_step, make_optimizer, restore_checkpoint, save_checkpoint)
-from ava256_tpu_torch.train.step import make_train_step
+from ava256_tpu_torch.train.step import make_train_step, step_generator
 
 RTOL = ATOL = 1e-5
 BWD_TOL = 2e-5  # backward kernel vs plain: max |d| / max |ref| per gradient
@@ -585,7 +599,9 @@ def trace_busy(path) -> dict:
     ms (its "train_step" annotation), the summed kernel and copy ms, the
     device's idle time inside the step split into gaps under and over 1 ms,
     the five longest gaps with the host op running in their middle, the
-    host's CUDA runtime calls, and the five kernels that took most time."""
+    host's CUDA runtime calls, the five kernels that took most time, and the
+    host ops inside the step, on every thread: their count and the six that
+    took most host time of their own."""
     events = [e for e in json.loads(Path(path).read_text())["traceEvents"] if e.get("ph") == "X"]
     step = [e for e in events if e.get("name") == "train_step"
             and e.get("cat") == "user_annotation"]
@@ -615,6 +631,19 @@ def trace_busy(path) -> dict:
     for e in kernels:
         by_name[e["name"][:60]] = by_name.get(e["name"][:60], 0.0) + e["dur"] / 1e3
     launches = [e for e in runtime if "Launch" in e["name"]]
+    # host ops inside the step by self time (their time less their children's),
+    # on every thread (the backward runs on the autograd engine's own)
+    own = sorted((e for e in host_ops if t0 <= e["ts"] < t1),
+                 key=lambda e: (str(e.get("tid")), e["ts"], -e["dur"]))
+    self_ms, stack = {}, []
+    for e in own:
+        while stack and (stack[-1].get("tid") != e.get("tid")
+                         or e["ts"] >= stack[-1]["ts"] + stack[-1]["dur"]):
+            stack.pop()
+        if stack:
+            self_ms[stack[-1]["name"]] = self_ms.get(stack[-1]["name"], 0.0) - e["dur"] / 1e3
+        self_ms[e["name"]] = self_ms.get(e["name"], 0.0) + e["dur"] / 1e3
+        stack.append(e)
     return dict(
         step_ms=step[0]["dur"] / 1e3, kernels=len(kernels),
         kernel_ms=sum(e["dur"] for e in kernels) / 1e3,
@@ -624,7 +653,9 @@ def trace_busy(path) -> dict:
         launch_calls=len(launches), launch_ms=sum(e["dur"] for e in launches) / 1e3,
         longest_gaps=[(round((b - a) / 1e3, 3), host_at((a + b) / 2)) for a, b in longest],
         top_kernels=[(k, round(v, 3)) for k, v in
-                     sorted(by_name.items(), key=lambda kv: -kv[1])[:5]])
+                     sorted(by_name.items(), key=lambda kv: -kv[1])[:5]],
+        host_ops=len(own), host_self_ms_top=[(k[:40], round(v, 3)) for k, v in
+                                            sorted(self_ms.items(), key=lambda kv: -kv[1])[:6]])
 
 
 class Watched:
@@ -840,6 +871,212 @@ def flagship_cli(dev: torch.device, work: Path):
         id_conds=len(pkls), fwd_launches=launches[0], bwd_launches=launches[1],
         seconds=round(seconds, 3))
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6c': model.dtype bfloat16 on the flagship
+# ---------------------------------------------------------------------------
+
+BF16_OPTS = ["model.dtype=bfloat16"]
+BF16_END = 10
+
+
+def bf16_train(dev: torch.device, work: Path, steady_fp32: dict):
+    """cli.train on the flagship yaml with model.dtype=bfloat16 at full width:
+    two steps from scratch, then a resume to step 10 with the warm-up
+    switches on up to step 6 and step 7 traced, as [loop-steady] (float32)
+    takes them in this call. Checked: a bfloat16 model with float32
+    parameters, one launch of each kernel per step with the backward handed
+    the forward's state, finite losses, changed parameters, the resume. The
+    kernels take float32 (and int32) only: ``raymarch_cuda._check_tiles``
+    refuses anything else, so a bfloat16 leak into the march fails here."""
+    run_dir = work / "bf16"
+    argv = ["--config", FLAGSHIP_YAML, "--device", str(dev), f"assets={work / 'assets'}",
+            f"progress.output_path={run_dir}", f"train.warmup_iters={STEADY_WARMUP}",
+            f"progress.profile_at={STEADY_TRACED}"] + BF16_OPTS
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_march_launches()  # this path starts here
+    t0 = time.perf_counter()
+    with LogLines() as log_lines, Watched() as watched:
+        state = cli_train.main(argv + ["train.maxiter=2"])
+        kept = [p.detach().clone() for p in state.model.parameters()]
+        del state
+        state = cli_train.main(argv + [f"train.maxiter={BF16_END}"])
+    launches = march_launches()
+    seconds = time.perf_counter() - t0  # this path ends here
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    model = state.model
+    if {m.dtype for m in model.modules() if hasattr(m, "dtype")} != {torch.bfloat16} or {
+            p.dtype for p in model.parameters()} != {torch.float32}:
+        raise AssertionError("bf16-train: not a bfloat16 model with float32 parameters")
+    # the forward kernel also renders step 0's progress PNGs
+    if state.step != BF16_END or watched.launches() != (BF16_END,) * 3 \
+            or launches[1:] != (BF16_END,) * 2 or any(s[2] != (1, 1, 1) for s in watched.steps):
+        raise AssertionError(f"bf16-train: step {state.step}, launches {launches}, per step "
+                             f"{[s[2] for s in watched.steps]}")
+    if not any("Resumed from" in ln and "step 2" in ln for ln in log_lines.lines):
+        raise AssertionError("bf16-train: the second call did not resume at step 2")
+    losses = watched.losses
+    params = list(model.parameters())
+    if len(losses) != BF16_END or not all(np.isfinite(v) for v in losses) or not all(
+            bool(torch.isfinite(p).all()) for p in params):
+        raise AssertionError(f"bf16-train: losses {losses}")
+    if all(torch.equal(p.detach(), q) for p, q in zip(params, kept)):
+        raise AssertionError("bf16-train: the resumed steps changed no parameter")
+    ms = dict(zip(range(2, BF16_END), watched.ms(1)))
+    warm = [ms[i] for i in range(3, STEADY_WARMUP)]
+    normal = [ms[i] for i in range(STEADY_TRACED + 1, BF16_END)]
+    busy = trace_busy(run_dir / "profile" / TRACE_FILE)
+    p50_normal = float(np.median(normal))
+    log("bf16-train", steps=BF16_END, resumed_at=2, losses=[round(v, 4) for v in losses],
+        steptimer_ms=ms, steptimer_p50_ms_warmup=round(float(np.median(warm)), 3),
+        steptimer_p50_ms_normal=round(p50_normal, 3),
+        fp32_steptimer_p50_ms_warmup=steady_fp32["p50_ms_warmup"],
+        fp32_steptimer_p50_ms_normal=steady_fp32["p50_ms_normal"],
+        device_busy_share_normal=busy_share(busy, p50_normal),
+        fp32_device_busy_share_normal=steady_fp32["busy_share_normal"],
+        peak_gib=round(peak_gib, 3),
+        fwd_launches=launches[0], bwd_launches=launches[1], bwd_with_state=launches[2],
+        seconds=round(seconds, 3))
+    log("bf16-trace", step=STEADY_TRACED,
+        **{k: round(v, 3) if isinstance(v, float) else v for k, v in busy.items()})
+    return launches
+
+
+def bf16_cli(dev: torch.device, work: Path):
+    """cli.render --num-frames 1, cli.eval --holdout-cameras 2 --num-items 2
+    and cli.generate_id_cond on [bf16-train]'s checkpoint, the model built in
+    bfloat16."""
+    common = ["--config", FLAGSHIP_YAML, "--device", str(dev),
+              "--checkpoint", str(work / "bf16" / "checkpoints")]
+    opts = ["--opts", f"assets={work / 'assets'}"] + BF16_OPTS
+    reset_march_launches()  # this path starts here
+    result = cli_eval.main(common + ["--holdout-cameras", "2", "--num-items", "2"] + opts)
+    rendered = cli_render.main(common + ["--num-frames", "1", "--output",
+                                         str(work / "bf16_renders")] + opts)
+    names = cli_idc.main(common + ["--output", str(work / "bf16_id_conds")] + opts)
+    launches = march_launches()  # this path ends here
+    if result["items"] != 2 or not all(np.isfinite(result[k])
+                                       for k in ("psnr_db", "ssim", "lpips_rf")):
+        raise AssertionError(f"bf16 cli.eval: {result}")
+    f = FLAGSHIP
+    pngs = sorted((work / "bf16_renders").glob("render_*.png"))
+    if rendered != 1 or len(pngs) != 1 or png_size(pngs[0]) != (f["height"], 3 * f["width"], 3):
+        raise AssertionError(f"bf16 cli.render: {rendered} frames, files {pngs}")
+    pkls = sorted((work / "bf16_id_conds").glob("*.pkl"))
+    with open(pkls[0], "rb") as fh:
+        id_cond = pickle.load(fh)
+    z = id_cond["z_geo"]
+    # the bfloat16 codes, written as float32: each value a bfloat16 one
+    if len(pkls) != f["nident"] or len(names) != f["nident"] or z.shape != (1, 4, 4, 16) \
+            or z.dtype != np.float32 or not np.isfinite(z).all() or not np.array_equal(
+                z, torch.from_numpy(z).to(torch.bfloat16).float().numpy()):
+        raise AssertionError(f"bf16 cli.generate_id_cond: {pkls}, z_geo {z.dtype} {z.shape}")
+    if launches != (2 + 2, 0, 0):  # 2 eval items, 1 frame of 2 decodes
+        raise AssertionError(f"bf16 cli: launches {launches}")
+    log("bf16-cli", eval=json.dumps(result), render_pngs=len(pngs), id_conds=len(pkls),
+        fwd_launches=launches[0], bwd_launches=launches[1])
+    return launches
+
+
+TURN_END = BF16_END + 12  # each turn: the step-10 checkpoint to step 22
+
+
+def dtype_turns(dev: torch.device, work: Path) -> tuple:
+    """The float32 and bfloat16 step times, comparable: cli.train resumed from
+    the step-10 checkpoints of [loop-steady] (float32) and [bf16-train]
+    (bfloat16) to step 22, untraced and past the warm-up, in the order fp32,
+    bf16, bf16, fp32, so that a drift of the host's pace over the phase falls
+    on both dtypes alike. Each call's first step is left out (first in its
+    call): 11 steps a call, 22 a dtype. Checked: one launch of each kernel per
+    step, finite losses."""
+    sources = {"fp32": ([], work / "steady"), "bf16": (BF16_OPTS, work / "bf16")}
+    order = ["fp32", "bf16", "bf16", "fp32"]
+    ms = {"fp32": [], "bf16": []}
+    p50 = []
+    reset_march_launches()  # this path starts here
+    with Watched() as watched:
+        for i, arm in enumerate(order):
+            extra, src = sources[arm]
+            state = cli_train.main(
+                ["--config", FLAGSHIP_YAML, "--device", str(dev), f"assets={work / 'assets'}",
+                 f"progress.output_path={work / f'turn-{i}-{arm}'}",
+                 f"train.checkpoint={src / 'checkpoints'}", f"train.warmup_iters={STEADY_WARMUP}",
+                 f"train.maxiter={TURN_END}"] + extra)
+            if state.step != TURN_END:
+                raise AssertionError(f"dtype-turns: {arm} ended at step {state.step}")
+            del state
+            shutil.rmtree(work / f"turn-{i}-{arm}")  # its step-22 checkpoint
+            steps = watched.ms(i)[1:]
+            ms[arm] += steps
+            p50.append(round(float(np.median(steps)), 3))
+    launches = march_launches()  # this path ends here
+    n = 4 * (TURN_END - BF16_END)
+    if launches != (n, n, n) or any(s[2] != (1, 1, 1) for s in watched.steps) or not all(
+            np.isfinite(v) for v in watched.losses):
+        raise AssertionError(f"dtype-turns: launches {launches}, losses {watched.losses}")
+    fp32, bf16 = (round(float(np.median(ms[a])), 3) for a in ("fp32", "bf16"))
+    log("dtype-turns", order=order, steptimer_p50_ms=p50, steps_per_call=len(ms["fp32"]) // 2,
+        fp32_p50_ms=fp32, bf16_p50_ms=bf16, bf16_over_fp32=round(bf16 / fp32, 4),
+        fwd_launches=launches[0], bwd_launches=launches[1], bwd_with_state=launches[2])
+    return launches
+
+
+def bf16_repeat(dev: torch.device, work: Path):
+    """What keeps a bfloat16 flagship step from repeating bit for bit: the
+    same state ([bf16-train]'s step-10 checkpoint), batch and noise, stepped
+    twice; then twice more under torch.use_deterministic_algorithms(True,
+    warn_only=True), which warns once for each operation that has no
+    deterministic implementation on the card (what it cannot see: the
+    backward kernel's float atomics) and makes the others deterministic. A
+    measurement: nothing is gated on it but finite values."""
+    import warnings
+
+    cfg = load_config(FLAGSHIP_YAML, [f"assets={work / 'assets'}"] + BF16_OPTS)
+    ds = loop.build_dataset(cfg)
+    model = loop.build_model(cfg, ds, loop.load_uvdata(cfg), dev)
+    optimizer = make_optimizer(model, cfg.train.optimizer, cfg.train.init_learning_rate,
+                               cfg.train.gamma, cfg.train.lr_scheduler_iter, cfg.train.clip)
+    train_step = make_train_step(model, optimizer, dict(cfg.train.losses), ds.vertmean,
+                                 ds.vertstd, output_set=frozenset(cfg.train.output_set))
+    batch = Uploader(dev).now(loop.to_model_batch(none_collate(
+        [ds[i] for i in range(FLAGSHIP["batch"])])))
+    ckpt = work / "bf16" / "checkpoints"
+
+    def one_step():
+        state = restore_checkpoint(ckpt, TrainState(model, optimizer, 0))
+        state, loss, _ = train_step(state, batch, generator=step_generator(dev, state.step),
+                                    running_avg_scale=False, use_gt_geo=False,
+                                    residuals_weight=1.0)
+        return float(loss), [p.detach().clone() for p in model.parameters()]
+
+    reset_march_launches()
+    (loss_a, params_a), (loss_b, params_b) = one_step(), one_step()
+    names = [n for n, _ in model.named_parameters()]
+    diffs = [float((a - b).abs().max()) for a, b in zip(params_a, params_b)]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            loss_c, params_c = one_step()
+        loss_d, params_d = one_step()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    diffs_c = [float((a - c).abs().max()) for a, c in zip(params_a, params_c)]
+    diffs_d = [float((c - d).abs().max()) for c, d in zip(params_c, params_d)]
+    ops = sorted({str(w.message).split(" does not have a deterministic")[0]
+                  for w in caught if "deterministic" in str(w.message)})
+    if not all(np.isfinite(v) for v in (loss_a, loss_b, loss_c)):
+        raise AssertionError(f"bf16-repeat: losses {loss_a, loss_b, loss_c}")
+    largest = sorted(zip(diffs, names), reverse=True)[:6]
+    log("bf16-repeat", loss_a=loss_a, loss_b=loss_b, loss_abs_delta=abs(loss_a - loss_b),
+        param_max_abs_delta=max(diffs), params_changed=sum(d > 0 for d in diffs),
+        params=len(diffs), largest=json.dumps([(n, d) for d, n in largest]),
+        loss_deterministic_mode=loss_c, param_max_abs_delta_vs_deterministic_mode=max(diffs_c),
+        deterministic_mode_twice_loss_abs_delta=abs(loss_c - loss_d),
+        deterministic_mode_twice_param_max_abs_delta=max(diffs_d),
+        deterministic_mode_twice_params_changed=sum(d > 0 for d in diffs_d),
+        launches=march_launches(), nondeterministic_ops=json.dumps(ops))
 
 
 # ---------------------------------------------------------------------------
@@ -1594,6 +1831,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         steady_launches, steady = flagship_loop_steady(dev, work, step_ms)
         torch.cuda.empty_cache()
+        bf16_train_launches = bf16_train(dev, work, steady)
+        torch.cuda.empty_cache()
+        bf16_cli_launches = bf16_cli(dev, work)
+        torch.cuda.empty_cache()
+        turns_launches = dtype_turns(dev, work)
+        torch.cuda.empty_cache()
+        bf16_repeat(dev, work)
+        torch.cuda.empty_cache()
         xla_train_launches, xla_step_ms = xla_train(dev, work)
         torch.cuda.empty_cache()
         csv = capture_write(work)
@@ -1622,11 +1867,16 @@ def main() -> int:
         dict(name="mvp_march_fwd", route="cuda", source=src + "mvp_march_fwd.cu",
              replaces="ava256_tpu/ops/raymarch_pallas.py:831",
              launches=render_launches + train_launches[0] + loop_launches[0] + cli_launches[0]
-             + steady_launches[0] + capture_launches[0] + capture_cli_launches[0]
+             + steady_launches[0] + bf16_train_launches[0] + bf16_cli_launches[0]
+             + turns_launches[0]
+             + capture_launches[0] + capture_cli_launches[0]
              + ddp_launches[0] + xla_train_launches[0] + bench_launches[0],
              launches_render=render_launches, launches_train=train_launches[0],
              launches_loop=loop_launches[0], launches_cli=cli_launches[0],
-             launches_loop_steady=steady_launches[0], launches_capture_train=capture_launches[0],
+             launches_loop_steady=steady_launches[0],
+             launches_bf16_train=bf16_train_launches[0], launches_bf16_cli=bf16_cli_launches[0],
+             launches_dtype_turns=turns_launches[0],
+             launches_capture_train=capture_launches[0],
              launches_capture_cli=capture_cli_launches[0], launches_ddp_train=ddp_launches[0],
              launches_xla_train=xla_train_launches[0], launches_bench=bench_launches[0],
              max_abs_err=max(small_err, k["max_abs_err"], k262["max_abs_err"]),
@@ -1642,16 +1892,20 @@ def main() -> int:
         dict(name="mvp_march_bwd", route="cuda", source=src + "mvp_march_bwd.cu",
              replaces="ava256_tpu/ops/raymarch_pallas.py:908",
              launches=train_launches[1] + loop_launches[1] + cli_launches[1]
-             + steady_launches[1] + capture_launches[1] + capture_cli_launches[1]
+             + steady_launches[1] + bf16_train_launches[1] + bf16_cli_launches[1]
+             + turns_launches[1]
+             + capture_launches[1] + capture_cli_launches[1]
              + ddp_launches[1] + xla_train_launches[1] + bench_launches[1],
              launches_train=train_launches[1], launches_loop=loop_launches[1],
              launches_cli=cli_launches[1], launches_loop_steady=steady_launches[1],
+             launches_bf16_train=bf16_train_launches[1], launches_dtype_turns=turns_launches[1],
              launches_capture_train=capture_launches[1],
              launches_capture_cli=capture_cli_launches[1], launches_ddp_train=ddp_launches[1],
              launches_xla_train=xla_train_launches[1], launches_bench=bench_launches[1],
              # launches that were handed the forward's saved state (all of them)
              launches_with_state=train_launches[2] + loop_launches[2] + steady_launches[2]
-             + capture_launches[2] + ddp_launches[2],
+             + bf16_train_launches[2] + turns_launches[2] + capture_launches[2]
+             + ddp_launches[2],
              max_abs_err=max(small_bwd_err, kb["max_abs_err"], kb262["max_abs_err"]), ms=kb["ms"],
              plain_ms=kb["plain_ms"], bound_ms=kb["bound_ms"], bound_by=kb["bound_by"],
              library_ms=None,
