@@ -31,4 +31,12 @@ layout and never imports it:
   configuration's numbers.
 """
 
+import os
+
+# cuBLAS gives the same bits on every run only with a fixed workspace, and
+# reads this when its first handle is made: set before any cuBLAS call (and
+# inherited by the processes the package starts), a value the user set kept.
+# factory.get_autoencoder asks PyTorch for deterministic algorithms.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
 __version__ = "0.1.0"

@@ -70,6 +70,7 @@ from ava256_tpu_torch.data.synthetic import SyntheticDataset, none_collate, synt
 from ava256_tpu_torch.factory import get_autoencoder
 from ava256_tpu_torch.geometry import create_uv_baridx
 from ava256_tpu_torch.kbench import measure_raymarch_arrays, sync
+from ava256_tpu_torch.ops import grid_sample as gs
 from ava256_tpu_torch.ops import raymarch_cuda as rc
 from ava256_tpu_torch.ops.raymarch_cuda import resolve_device
 from ava256_tpu_torch.render import BATCH_MODEL_KEYS
@@ -144,6 +145,8 @@ def bench(device, steps: int = 5, batch: int = 4, nprims: int = 16384, primsize:
     state = TrainState(model, optimizer, 0)
     kernels = (rc.march_tiles_kernel, rc.march_tiles_bwd_kernel)
     launched = [k.launches for k in kernels]
+    grid = gs.grid_sample_kernels
+    grid_launched = [grid.launches, grid.bwd_launches]
 
     # the training warm-up protocol (sets the adaptive primitive scale),
     # then a normal step
@@ -175,6 +178,7 @@ def bench(device, steps: int = 5, batch: int = 4, nprims: int = 16384, primsize:
     if not np.isfinite(final):
         raise RuntimeError(f"non-finite loss {final}")
     launched = [k.launches - n for k, n in zip(kernels, launched)]
+    grid_launched = [grid.launches - grid_launched[0], grid.bwd_launches - grid_launched[1]]
 
     # no-op probes: a one-element x + 1, synchronized per call and chained
     x = torch.zeros((), device=device) + 1.0
@@ -208,6 +212,8 @@ def bench(device, steps: int = 5, batch: int = 4, nprims: int = 16384, primsize:
         # launches of the forward and backward march kernels by the 2 + 3 *
         # steps train steps (0 where the plain versions ran, on the CPU)
         "march_launches": launched,
+        # the grid-sample kernels' (forward, backward) launches by those steps
+        "grid_sample_launches": grid_launched,
     }
 
     # the march on the step's own scene: the model's march operands now

@@ -54,10 +54,24 @@ def get_autoencoder(
     ``data.synthetic.synthetic_uvdata``). vertmean [V, 3], vertstd scalar.
     fp32 stays fp32 on the card: TF32 is switched off for cuDNN convolutions
     and cuBLAS matmuls, which would otherwise round conv inputs to 10 bits.
+
+    Every path that builds the model runs deterministically, as JAX does on
+    the TPU, with no switch to turn it off: ``use_deterministic_algorithms``
+    in its raising mode (cuDNN takes deterministic algorithms, the gathers'
+    backwards their sorting paths, and an operation with no deterministic
+    form raises), cuDNN's autotuner off (it could pick another algorithm in
+    another process), and cuBLAS's workspace fixed by
+    ``CUBLAS_WORKSPACE_CONFIG``, which the package sets when it is imported.
+    PyTorch's fill of uninitialized memory, a debugging aid that launches a
+    fill for every allocation, stays off: every operation writes its whole
+    output. The hand-written kernels' sums are order-free by design.
     """
     device = resolve_device(device)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
     rm_opts = dict(raymarch_options or {})
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)

@@ -25,8 +25,11 @@ The topology is ``data.synthetic.write_topology_obj``'s, the UV maps are
 built once into ``OUT/cache`` before the runs start. The runs share the card,
 so their step times are not the port's speed (``chip_smoke.py``'s
 ``[dtype-turns]`` times the two dtypes); their losses and PSNR probes are
-what the runs are for. Exits non-zero if a run fails or the kill did not
-land in step 467.
+what the runs are for. A training step repeats bit for bit, so the resumed
+run must end where the uninterrupted one does: the step-600 checkpoints of
+``bf16`` and ``bf16-resume`` are compared entry by entry and the result
+printed. Exits non-zero if a run fails, the kill did not land in step 467
+or the two checkpoints differ.
 """
 
 from __future__ import annotations
@@ -50,6 +53,30 @@ def _command(out: Path, arm: str, device: str, opts: list) -> list:
             "--device", device, f"assets={out / 'assets'}", f"progress.output_path={out / arm}",
             f"train.maxiter={STEPS}", f"train.checkpoint_every={CHECKPOINT_EVERY}"] \
         + ARMS[arm] + opts
+
+
+def compare_checkpoints(a: Path, b: Path) -> list:
+    """The entries (parameters, optimizer state, step) in which two
+    ``torch.save`` checkpoints differ, bit for bit; empty when equal."""
+    import torch
+
+    def leaves(x, key=()):
+        if isinstance(x, dict):
+            return {k: v for name in x for k, v in leaves(x[name], key + (name,)).items()}
+        if isinstance(x, (list, tuple)):
+            return {k: v for i, item in enumerate(x) for k, v in leaves(item, key + (i,)).items()}
+        return {key: x}
+
+    la, lb = (leaves(torch.load(p, map_location="cpu", weights_only=True)) for p in (a, b))
+    differ = sorted(str(k) for k in set(la) ^ set(lb))
+    for k in set(la) & set(lb):
+        x, y = la[k], lb[k]
+        same = (x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+                if isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)
+                else type(x) is type(y) and x == y)
+        if not same:
+            differ.append(str(k))
+    return differ
 
 
 def _start(cmd: list, log: Path, env: dict) -> subprocess.Popen:
@@ -101,7 +128,14 @@ def main(argv=None) -> int:
         print(f"the kill landed after {killed_at} logged steps, not in step "
               f"{KILL_AFTER + 1}", file=sys.stderr)
         return 1
-    return 0 if not any(rcs.values()) else 1
+    if any(rcs.values()):
+        return 1
+    final = [out / arm / "checkpoints" / f"step_{STEPS:08d}.pt" for arm in ("bf16", "bf16-resume")]
+    differ = compare_checkpoints(*final)
+    print(f"step-{STEPS} checkpoints of bf16 and bf16-resume: "
+          + ("bitwise equal" if not differ else f"{len(differ)} entries differ: {differ[:8]}"),
+          flush=True)
+    return 1 if differ else 0
 
 
 if __name__ == "__main__":

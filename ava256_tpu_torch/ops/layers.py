@@ -160,6 +160,62 @@ class Conv2dWN(_WeightNorm):
         return _affine(x, self.dtype, self.effective_weight(), self.bias, self._op, (-1, 1, 1))
 
 
+@functools.lru_cache(maxsize=None)
+def _phase_taps(stride: int, taps: int, device: torch.device) -> torch.Tensor:
+    """[stride, taps] kernel indices: output row y is phase r = (y + p) % stride
+    at q = (y + p) // stride, made of input rows q - j (row q of the input
+    padded by taps - 1) with kernel tap r + stride * j; listed for t = taps -
+    1 - j, the correlation's order. Cached: built once per device, outside
+    any inference mode (autograd saves it for the weight's gradient)."""
+    with torch.inference_mode(False):
+        return torch.tensor([[r + stride * (taps - 1 - t) for t in range(taps)]
+                             for r in range(stride)], device=device)
+
+
+def conv_transpose2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                     stride: Tuple[int, int], padding: Tuple[int, int]) -> torch.Tensor:
+    """``F.conv_transpose2d`` (weight [in, out, kh, kw]); on a CUDA tensor with
+    a kernel that is a multiple of the stride, in its sub-pixel form
+    (``conv_transpose2d_subpixel``): cuDNN's deterministic algorithm for a
+    transposed convolution (its data gradient) was the largest cost of a
+    deterministic training step on the flagship's decoders (H100), while an
+    ordinary convolution's forward is deterministic and fast. On the CPU ``F.conv_transpose2d``
+    stays: its weight gradient over a batch equals the sum of its items'
+    (the sub-pixel form's differs in the last bits), which the CPU test of
+    data-parallel ranks against one process holds it to
+    (tests/test_torch_port_parallel.py; Adam turns last-bit differences of
+    near-zero gradients into whole steps)."""
+    kh, kw = w.shape[2:]
+    if not x.is_cuda or kh % stride[0] or kw % stride[1] or stride[0] * stride[1] == 1:
+        return F.conv_transpose2d(x, w, b, stride, padding)
+    return conv_transpose2d_subpixel(x, w, b, stride, padding)
+
+
+def conv_transpose2d_subpixel(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                              stride: Tuple[int, int],
+                              padding: Tuple[int, int]) -> torch.Tensor:
+    """``F.conv_transpose2d`` for a kernel that is a multiple of the stride:
+    output phase (ry, rx) of the stride^2 is an ordinary convolution of the
+    input with every stride-th tap of the flipped kernel, so all phases are
+    one convolution with stride^2 x out channels, then interleaved. The same
+    products and sums, in another order."""
+    (sh, sw), (ph, pw) = stride, padding
+    cin, cout, kh, kw = w.shape
+    th, tw = kh // sh, kw // sw
+    hin, win = x.shape[2:]
+    iy, ix = _phase_taps(sh, th, w.device), _phase_taps(sw, tw, w.device)
+    taps = w[:, :, iy[:, None, :, None], ix[None, :, None, :]]  # [in, out, sh, sw, th, tw]
+    taps = taps.permute(2, 3, 1, 0, 4, 5).reshape(sh * sw * cout, cin, th, tw)
+    y = F.conv2d(F.pad(x, (tw - 1, tw - 1, th - 1, th - 1)), taps,
+                 None if b is None else b.repeat(sh * sw))
+    n, _, qh, qw = y.shape
+    y = y.reshape(n, sh, sw, cout, qh, qw).permute(0, 3, 4, 1, 5, 2)
+    y = y.reshape(n, cout, qh * sh, qw * sw)
+    hout = (hin - 1) * sh - 2 * ph + kh
+    wout = (win - 1) * sw - 2 * pw + kw
+    return y[:, :, ph:ph + hout, pw:pw + wout]
+
+
 class ConvTranspose2dWN(_WeightNorm):
     """Weight-normalized 2D transposed conv, NCHW, weight [in, out, kh, kw].
     Output size ``(in - 1) * stride - 2 * padding + kernel_size``."""
@@ -185,7 +241,7 @@ class ConvTranspose2dWN(_WeightNorm):
         self._init_params(w, out_features, bias, dtype)
 
     def _op(self, x, w, b):
-        return F.conv_transpose2d(x, w, b, self.stride, self.padding)
+        return conv_transpose2d(x, w, b, self.stride, self.padding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return _affine(x, self.dtype, self.effective_weight(), self.bias, self._op, (-1, 1, 1))

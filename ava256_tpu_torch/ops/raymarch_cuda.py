@@ -26,7 +26,9 @@ Port of ``ava256_tpu.ops.raymarch_pallas``:
    tiles and the forward's saturation state, the gradients of the template
    and warp boxes and of every primitive's affine, summed over the tiles.
    Kernel on CUDA tensors, ``march_tiles_bwd_plain`` on CPU tensors. Without
-   a state it runs the forward march once more to get it.
+   a state it runs the forward march once more to get it. The kernel's sums
+   are integer sums at a per-call fixed-point scale (``fixed_point_bounds``,
+   ``ops/fixed_point.py``): it gives the same bits on every run.
 4. The op (``mvp_raymarch_cuda``): one ``torch.autograd.Function`` that culls
    on the values, marches (saving the state when a gradient is needed), and
    in the backward marches with the forward's saved candidates and state;
@@ -41,6 +43,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ava256_tpu_torch.ops import fixed_point
 from ava256_tpu_torch.ops.cuda_lib import CudaLib
 
 MARCH_FWD_LIB = CudaLib("mvp_march_fwd.cu")
@@ -674,6 +677,50 @@ class _MarchKernel:
         return (out, state) if with_state else out
 
 
+def fixed_point_bounds(g_tiles, scal, template, warp, dt, fadescale, fadeexp, nbuf):
+    """Sound bounds of the sum of |addends| each channel group of the
+    backward kernel's box tables receives, [5] float64 on the rays' device:
+    the template's four channels, then the warp (0 without one), and the
+    smallest density, whose sign the bounds assume (>= 0).
+
+    Per ray, with densities >= 0: the samples' cscale * alpha * u sum to at
+    most 1 (the composite's weights) and cscale <= 1; |w|, |wsat| and
+    |rgb_dot| are at most G = sum_c<3 |g_c| times R = max|rgb|; a trilinear
+    weight set sums to at most 1 and its derivative along an axis to at most
+    2. A ray's samples of one candidate lie on its chord through the box, at
+    most chord / dt + 2 of them (and nbuf), where chord <= 2 sqrt(3) /
+    sigma_min(A) and sigma_min(A) >= |det A| / (|A|_F^2 / 2); each has
+    u <= dt * max fade. Summed over the tile's candidates that is the tile's
+    U. So a ray adds at most |g_c| to rgb channel c, s3 = (4 G R + |g_a|) U
+    to alpha, and 2 h D to the warp (h = (bs - 1) / 2), where D = R G + A s3
+    bounds the template corners' dot products (A = max|alpha|)."""
+    bs = template.shape[1]
+    h = 0.5 * (bs - 1)
+    g = g_tiles.double().abs()  # [NT, 4, T2]
+    gsum = g[:, 0] + g[:, 1] + g[:, 2]  # [NT, T2]
+    lo, hi = torch.aminmax(template.reshape(-1, 4), dim=0)
+    top = torch.maximum(lo.abs(), hi.abs()).double()
+    rgb_max, alpha_max = top[:3].amax(), top[3]
+    # samples a ray can take in each candidate, and their u summed per tile
+    A = scal[..., :9].double().reshape(scal.shape[0], scal.shape[1], 3, 3)
+    frob = (A * A).sum(dim=(-2, -1))
+    det = (A[..., 0, 0] * (A[..., 1, 1] * A[..., 2, 2] - A[..., 1, 2] * A[..., 2, 1])
+           - A[..., 0, 1] * (A[..., 1, 0] * A[..., 2, 2] - A[..., 1, 2] * A[..., 2, 0])
+           + A[..., 0, 2] * (A[..., 1, 0] * A[..., 2, 1] - A[..., 1, 1] * A[..., 2, 0]))
+    chord = 3.0**0.5 * frob / det.abs()  # inf for a singular A
+    count = torch.clamp(chord / dt + 2.0, max=float(nbuf))
+    count = torch.where(frob > 0, count, torch.zeros_like(count))  # A = 0: an empty slot
+    fade_max = math.exp(3.0 * max(0.0, -fadescale))  # |y| <= 1 inside a box
+    u = count.sum(dim=1, keepdim=True) * (dt * fade_max)  # [NT, 1]
+    s3 = (4.0 * gsum * rgb_max + g[:, 3]) * u
+    if warp is None:
+        warp_bound = torch.zeros((), dtype=torch.float64, device=g.device)
+    else:
+        warp_bound = (2.0 * h * (rgb_max * gsum + alpha_max * s3)).sum()
+    bounds = torch.stack([g[:, 0].sum(), g[:, 1].sum(), g[:, 2].sum(), s3.sum(), warp_bound])
+    return bounds, lo[3]
+
+
 class _MarchBwdKernel:
     """Wrapper of the backward CUDA kernel with its launch count;
     ``launches_with_state`` counts the launches that were handed the
@@ -688,7 +735,7 @@ class _MarchBwdKernel:
     def _lib(self) -> ctypes.CDLL:
         lib = self.cuda_lib.lib()
         lib.mvp_march_bwd.restype = ctypes.c_int
-        lib.mvp_march_bwd.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
+        lib.mvp_march_bwd.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 6
                                       + [ctypes.c_float] * 3 + [ctypes.c_void_p])
         lib.mvp_march_bwd_smem_bytes.restype = ctypes.c_size_t
         lib.mvp_march_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
@@ -705,6 +752,7 @@ class _MarchBwdKernel:
         ntiles, mh = gid.shape
         t2 = t_o.shape[2]
         bs = template.shape[1]
+        nboxes = template.shape[0]
         dev = t_o.device
         if g_tiles.shape != (ntiles, 4, t2):
             raise ValueError(f"g_tiles must be {(ntiles, 4, t2)}, got {tuple(g_tiles.shape)}")
@@ -714,21 +762,33 @@ class _MarchBwdKernel:
         if not given:
             _, state = self.forward(gid, scal, t_o, t_d, t_mm, template, warp, dt, fadescale,
                                     fadeexp, nbuf, with_state=True)
-        d_tpl = torch.zeros_like(template)
-        d_wrp = None if warp is None else torch.zeros_like(warp)
-        d_aff = torch.zeros((template.shape[0], 12), dtype=torch.float32, device=dev)
+        bounds, alpha_min = fixed_point_bounds(g_tiles, scal, template, warp, dt, fadescale,
+                                               fadeexp, nbuf)
+        flag = fixed_point.flag(dev)
+        flag.bitwise_or_((alpha_min < 0).to(torch.int32) * fixed_point.NEGATIVE_DENSITY)
+        scales = fixed_point.scale_for(bounds)
+        inv = 1.0 / scales
+        inv_tmpl = inv[0:4].contiguous()
+        inv_warp = inv[4:5].expand(3).contiguous()
+        # integer box tables and the warps' affine rows: scratch from the
+        # caching allocator
+        q_tpl = torch.zeros(template.shape, dtype=torch.int64, device=dev)
+        q_wrp = None if warp is None else torch.zeros(warp.shape, dtype=torch.int64, device=dev)
+        rows = torch.zeros((ntiles, t2 // 32, mh, 12), dtype=torch.float32, device=dev)
+        d_tpl = torch.empty_like(template)
+        d_wrp = None if warp is None else torch.empty_like(warp)
         work = None if counts is None else torch.zeros(2, dtype=torch.int64, device=dev)
         tally = None if probe is None else torch.zeros(6, dtype=torch.int64, device=dev)
+        ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
             err = lib.mvp_march_bwd(
                 gid.data_ptr(), scal.data_ptr(), t_o.data_ptr(), t_d.data_ptr(), t_mm.data_ptr(),
-                g_tiles.data_ptr(), state.data_ptr(), template.data_ptr(),
-                None if warp is None else warp.data_ptr(), d_tpl.data_ptr(),
-                None if d_wrp is None else d_wrp.data_ptr(), d_aff.data_ptr(),
-                None if work is None else work.data_ptr(),
-                None if tally is None else tally.data_ptr(),
-                ntiles, t2, mh, bs, nbuf, dt, fadescale, fadeexp, stream)
+                g_tiles.data_ptr(), state.data_ptr(), template.data_ptr(), ptr(warp),
+                q_tpl.data_ptr(), ptr(q_wrp), scales.data_ptr(), inv_tmpl.data_ptr(),
+                inv_warp.data_ptr(), d_tpl.data_ptr(), ptr(d_wrp), rows.data_ptr(),
+                flag.data_ptr(), ptr(work), ptr(tally),
+                nboxes, ntiles, t2, mh, bs, nbuf, dt, fadescale, fadeexp, stream)
         self.cuda_lib.check(err, "mvp_march_bwd launch")
         self.launches += 1
         self.launches_with_state += int(given)
@@ -736,7 +796,9 @@ class _MarchBwdKernel:
             counts["forward_samples"], counts["chained_samples"] = work[0], work[1]
         if probe is not None:
             probe["march"], probe["chain"] = _probe_counts(tally)
-        return d_tpl, d_wrp, d_aff
+        # over the warps in a fixed order, then over the tiles as integers
+        return d_tpl, d_wrp, fixed_point.index_add_exact(
+            nboxes, gid, rows.sum(dim=1).reshape(-1, 12))
 
 
 march_tiles_kernel = _MarchKernel(MARCH_FWD_LIB)

@@ -44,6 +44,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ava256_tpu_torch.ops import fixed_point
 from ava256_tpu_torch.ops.layers import remat
 from ava256_tpu_torch.ops.raymarch_cuda import _norm, _smallest
 
@@ -62,9 +63,39 @@ def _cummax(x: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.cummax(x, dim=dim).values
 
 
+def _prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum over the last dim by log2 shifted adds: a fixed
+    tree of the same terms on every run and device (a float ``torch.cumsum``
+    has no deterministic form on CUDA)."""
+    d = 1
+    while d < x.shape[-1]:
+        x = x + F.pad(x[..., :-d], (d, 0))
+        d *= 2
+    return x
+
+
+class _Take(torch.autograd.Function):
+    """table[idx] as an index_select whose backward is an order-free integer
+    index_add (``fixed_point.index_add_exact``): the same bits on every run,
+    where index_select's own backward adds with float atomics (or, under the
+    deterministic mode, sorts: seconds a step on an H100)."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return torch.index_select(table, 0, idx)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        idx, = ctx.saved_tensors
+        return fixed_point.index_add_exact(ctx.rows, idx, grad), None
+
+
 def _take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table[idx] as an index_select, whose backward is an index_add_."""
-    return torch.index_select(table, 0, idx.reshape(-1)).reshape(idx.shape + table.shape[1:])
+    """table[idx], differentiable in table with a deterministic backward."""
+    return _Take.apply(table, idx.reshape(-1)).reshape(idx.shape + table.shape[1:])
 
 
 def _trilinear(flat_template: torch.Tensor, vol_shape: Tuple[int, int, int],
@@ -81,21 +112,24 @@ def _trilinear(flat_template: torch.Tensor, vol_shape: Tuple[int, int, int],
     wx1, wy1, wz1 = fx - x0, fy - y0, fz - z0
 
     base = gid.long() * (d * h * w)
-    out = 0.0
+    idx, masks, wgts = [], [], []
     for dz in (0, 1):
         for dy in (0, 1):
             for dx in (0, 1):
                 xi, yi, zi = x0 + dx, y0 + dy, z0 + dz
-                mask = ((xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
-                        & (zi >= 0) & (zi <= d - 1))
+                masks.append((xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+                             & (zi >= 0) & (zi <= d - 1))
                 xc = torch.clamp(xi, 0, w - 1).long()
                 yc = torch.clamp(yi, 0, h - 1).long()
                 zc = torch.clamp(zi, 0, d - 1).long()
-                idx = base + (zc * h + yc) * w + xc
-                vals = _take(flat_template, idx) * mask[..., None]
-                wgt = ((wx1 if dx else 1.0 - wx1) * (wy1 if dy else 1.0 - wy1)
-                       * (wz1 if dz else 1.0 - wz1))
-                out = out + vals * wgt[..., None]
+                idx.append(base + (zc * h + yc) * w + xc)
+                wgts.append((wx1 if dx else 1.0 - wx1) * (wy1 if dy else 1.0 - wy1)
+                            * (wz1 if dz else 1.0 - wz1))
+    # one gather of the 8 corners: one table-sized gradient per call, not 8
+    vals = _take(flat_template, torch.stack(idx, dim=-1))  # [..., 8, C]
+    out = 0.0
+    for k in range(8):
+        out = out + (vals[..., k, :] * masks[k][..., None]) * wgts[k][..., None]
     return out
 
 
@@ -273,7 +307,7 @@ def march_compacted(
 
         mask = (s_valid & inbox).to(out_dtype)
         alpha_j = sample[..., 3] * fade * dt * mask  # [CT, T2, S]
-        cum = torch.cumsum(alpha_j, dim=-1)
+        cum = _prefix_sum(alpha_j)
         cum_prev = F.pad(cum[..., :-1], (1, 0))
         m = torch.clamp(cum, max=1.0)
         # contrib_j = m_j - m_{j-1}; before saturation that is alpha_j itself,

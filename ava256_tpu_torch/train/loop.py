@@ -47,6 +47,7 @@ from ava256_tpu_torch.data.loader import ShardedLoader, Uploader, device_prefetc
 from ava256_tpu_torch.data.synthetic import SyntheticDataset
 from ava256_tpu_torch.factory import get_autoencoder
 from ava256_tpu_torch.geometry import create_uv_baridx
+from ava256_tpu_torch.ops import fixed_point
 from ava256_tpu_torch.ops.raymarch_cuda import resolve_device
 from ava256_tpu_torch.render import BATCH_MODEL_KEYS
 from ava256_tpu_torch.train.metrics import psnr
@@ -309,6 +310,8 @@ def _run(cfg: Config, device: torch.device, seed: int) -> TrainState:
                         running_avg_scale=in_warmup, use_gt_geo=in_warmup,
                         residuals_weight=0.0 if in_warmup else 1.0, cond=cond)
                     loss = float(loss)  # the step's result on the host
+                    # the backward kernels' integer sums lost no addend
+                    fixed_point.check(device)
 
                 # ---- progress renders ----
                 if lead and ((iternum < 10_000 and iternum % 100 == 0) or iternum % 1000 == 0):

@@ -26,7 +26,16 @@ Phases (each prints one line; any failure exits non-zero):
    2e-4, clip 1.0) and make_train_step with the configuration's four loss
    weights; one warm-up step (running_avg_scale, ground-truth geometry,
    residuals off), three normal steps on different batches, a checkpoint
-   saved before the last of them, restored, and that step taken again;
+   saved before the last of them, restored, and that step taken again (its
+   losses and parameters bitwise equal to the first take's);
+5b. ``[grid-sample]``: the grid-sample kernels (``csrc/grid_sample.cu``)
+   against ``F.grid_sample`` on every call of one training forward of that
+   model (each level of both bias pyramids of the identity encoder's warp,
+   batch 4, up to 1024^2, and the geometry decoder's vertex sampling):
+   outputs at rtol = atol = 1e-5, gradients at the backward limits, a
+   rerun bitwise equal; printed: the kernels' forward + backward ms over
+   those calls beside F.grid_sample's and its plain version's, and the
+   bytes bound;
 6. the training entry point, ``cli.train.main`` (what ``python -m
    ava256_tpu_torch.cli.train`` runs) on configs/config-synthetic-flagship.yaml
    with a topology .obj written into a temporary ``assets=`` directory: two
@@ -58,11 +67,7 @@ Phases (each prints one line; any failure exits non-zero):
    ``cli.eval``, ``cli.render`` and ``cli.generate_id_cond`` on its
    checkpoint; ``[dtype-turns]`` resumes the float32 and the bfloat16 step-10
    checkpoints for 12 more steps each, in the order fp32, bf16, bf16, fp32,
-   and prints each dtype's StepTimer p50 over 22 steps; ``[bf16-repeat]``
-   steps twice from one checkpoint on one batch, then twice under
-   ``torch.use_deterministic_algorithms(True, warn_only=True)``, and prints
-   how far the results lie apart and which operations PyTorch names as
-   nondeterministic;
+   and prints each dtype's StepTimer p50 over 22 steps;
 6d. the capture-data path (``configs/config-4.yaml``): ``[capture-write]``
    writes 4 identities of the synthetic dataset as captures in the ava-256
    release's on-disk layout (``data.synthetic.write_capture``: 4 cameras,
@@ -71,7 +76,10 @@ Phases (each prints one line; any failure exits non-zero):
    7,306 vertices) and prints the bytes and seconds; ``[capture-io]`` times
    one item's fetch on this host (zip read, inflate, unfilter, resize, PLY)
    and holds the host library's resize against its numpy restatement on one
-   4096x2668 image (at most one level apart); ``[capture-train]`` runs
+   4096x2668 image (at most one level apart); ``[loaderbench]`` runs
+   ``python -m ava256_tpu_torch.loaderbench --frames 12 --items 24`` (the
+   port of scripts/loaderbench.py: ShardedLoader items/s with 1, 2 and 4
+   threads on 4096x2668 PNG captures); ``[capture-train]`` runs
    ``cli.train`` on config-4 (batch 4, 512x333 rays, 16,384 primitives of
    8^3, tile 16, max_hit 128, 4 loader threads) over those captures: 2 steps
    from scratch, then a resume to step 8 with step 5 traced. Checked: one
@@ -95,9 +103,8 @@ Phases (each prints one line; any failure exits non-zero):
    (what ``-m ava256_tpu_torch.cli.train`` runs) with its steps watched and
    writes what it saw to OUT. Checked: NCCL with a world of 1, the group
    left at the end, one gradient all-reduce and one launch of each kernel
-   per step, the resume, step 0's loss equal to the single process's
-   exactly and the later ones within DDP_LOSS_RTOL; printed: the losses and
-   their differences, the StepTimer ms and p50 of the steps that are not
+   per step, the resume, every loss equal to the single process's exactly;
+   printed: the losses, the StepTimer ms and p50 of the steps that are not
    first in their call, the peak GiB of each process, the seconds;
    ``[262k-kernel]`` and ``[262k-kernel-bwd]`` hold the two kernels against
    their plain versions on that configuration's scene (a batch rendered by
@@ -109,9 +116,10 @@ Phases (each prints one line; any failure exits non-zero):
    included, with the kernel's time with and without that output, the plain
    version's time and the kernel's bound;
 8. backward kernel vs plain on the flagship scene: the kernel over all tiles
-   twice (the largest difference between the two runs is printed: its sums
-   are floating-point atomics) and timed (mean of 5) as the training step
-   calls it, with the forward's saved state, and without one (the wrapper
+   twice (the two runs must be bitwise equal: its sums are order-free
+   integer sums; each template channel's headroom_bits is printed) and
+   timed (mean of 5) as the training step calls it, with the forward's
+   saved state, and without one (the wrapper
    then runs the forward kernel first); the plain version on every
    BWD_PLAIN_STRIDE-th tile, against the kernel on the same tiles, both
    timed there too. The bound counts one evaluation of every sample the
@@ -128,7 +136,14 @@ Phases (each prints one line; any failure exits non-zero):
    then forward + backward; an out-of-memory error is reported);
 10. ``[xla-train]``: ``cli.train`` on the flagship yaml with
    ``model.raymarch.backend=xla`` for 2 steps (finite losses, moved
-   parameters, no march kernel launched);
+   parameters, no march kernel launched); ``[repeat]``: one normal step
+   taken twice from one state on one batch, from the float32, bfloat16 and
+   ``backend: xla`` checkpoints of the phases before: every loss term,
+   gradient, parameter and Adam moment bitwise equal, or the phase fails;
+   ``[resume-exact]``: ``cli.train`` on the flagship to step 8 with a
+   checkpoint every 4 steps, and a second run from that mid-run checkpoint to
+   step 8: the two step-8 checkpoints and the re-logged losses bitwise
+   equal;
 11. ``[bench]``: ``python -m ava256_tpu_torch.bench`` at its defaults in a
    child process, its JSON line printed under the tag (bench.py's keys,
    finite values, one launch of each kernel per train step), then
@@ -138,9 +153,11 @@ Tolerances, kernel vs plain. Forward: rtol = atol = 1e-5; both run the same
 fp32 operations in the same order (the kernels are built without FMA
 contraction); what is left is ulp-level rounding of expf and division.
 Backward: max |d| <= BWD_TOL * max |ref| per gradient and cosine > 0.99999;
-the kernel's sums over rays, rows and tiles are atomic adds in an order the
-scheduler picks, the plain version's are index_add_ in another, so the two
-differ by the rounding of fp32 sums of up to a few thousand terms.
+the kernel's sums over rays, rows and tiles are integer sums at a
+fixed-point scale (exact and order-free, so two runs give the same bits:
+rerun_max_rel_diff must be 0), the plain version's are float index_add_ in
+another order, so the two differ by the rounding of fp32 sums of up to a
+few thousand terms and the fixed point's resolution (headroom_bits).
 The compacted marcher vs the kernels (the same samples): alpha at rtol =
 atol = 1e-4 on every ray; the images of the rays that saturate in neither
 (the two composite a saturating step by different rules) to 1e-4 of their
@@ -149,10 +166,11 @@ cosine > 0.9999, the template's also at max |d| <= 1e-3 max |ref|. The two
 round a sample's place in its box differently, so a sample on a box face
 can be taken by one only; the geometric gradients' max |d| and the
 primitives beyond 1e-3 are printed as measured.
-The restored training step: loss terms within 1e-4 relative of the first
-take, parameters within 2.1 learning rates (Adam's first steps move a
-parameter by about lr * sign(g), and the backward's last bits are not
-repeatable, so a gradient near zero may flip).
+Repeats: the restored training step, [ddp-train], [repeat] and
+[resume-exact] are held to bitwise equality (every path that builds the
+model runs under PyTorch's deterministic mode, and the kernels' sums are
+order-free). The plain versions on the card run outside that mode: they are
+checks, not the main path.
 
 The second-to-last lines are the kernel table (JSON) and the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
@@ -160,8 +178,10 @@ power limit; the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
+import math
 import os
 import pickle
 import re
@@ -191,6 +211,8 @@ from ava256_tpu_torch.data.synthetic import (
 from ava256_tpu_torch.factory import get_autoencoder
 from ava256_tpu_torch.flagship import FLAGSHIP  # configs/config-synthetic-flagship.yaml
 from ava256_tpu_torch.geometry.ply import parse_ply_vertices
+from ava256_tpu_torch.ops import fixed_point
+from ava256_tpu_torch.ops import grid_sample as gs
 from ava256_tpu_torch.ops import raymarch_cuda as rc
 from ava256_tpu_torch.ops.cuda_lib import build_all
 from ava256_tpu_torch.ops.math3d import rodrigues
@@ -256,8 +278,36 @@ def march_launches():
 
 
 def reset_march_launches() -> None:
+    """Every kernel's count to 0 (the march kernels' and the grid-sample ones')."""
     rc.march_tiles_kernel.launches = 0
     rc.march_tiles_bwd_kernel.launches = rc.march_tiles_bwd_kernel.launches_with_state = 0
+    reset_grid_launches()
+
+
+# the grid-sample kernels' (forward, backward) launches of each main path,
+# read where the path ends (the march kernels' are returned by the phases)
+GRID_LAUNCHES = {}
+
+
+def grid_launches() -> tuple:
+    return gs.grid_sample_kernels.launches, gs.grid_sample_kernels.bwd_launches
+
+
+def reset_grid_launches() -> None:
+    gs.grid_sample_kernels.launches = gs.grid_sample_kernels.bwd_launches = 0
+
+
+@contextlib.contextmanager
+def plain_check():
+    """The plain versions on the card are checks, not the main path: they run
+    outside the deterministic mode (under it, index_add_ sorts, and the
+    backward's plain version takes minutes)."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(False)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
 
 
 def check_close(what: str, got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -384,6 +434,7 @@ def flagship_render(dev: torch.device):
     per_forward, launches = [], []
     torch.cuda.reset_peak_memory_stats(dev)
     rc.march_tiles_kernel.launches = 0  # the main path starts here
+    reset_grid_launches()
     with torch.inference_mode():
         b = batches[0]
         ev[0].record()
@@ -404,6 +455,7 @@ def flagship_render(dev: torch.device):
                 per_forward.append(ev[0].elapsed_time(ev[1]))
                 launches.append(rc.march_tiles_kernel.launches)
     main_launches = rc.march_tiles_kernel.launches  # the main path ends here
+    GRID_LAUNCHES["flagship_render"] = grid_launches()
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
 
     if any(b <= a for a, b in zip([0] + launches, launches)):
@@ -513,13 +565,13 @@ def flagship_train(model, ds, batches, dev: torch.device):
         state = one_step(state, batches[3], normal)
     launches = march_launches()
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30  # the main path ends here
+    GRID_LAUNCHES["flagship_train"] = grid_launches()
 
     again = steps[-1]
-    for k, v in first["terms"].items():
-        if abs(again["terms"][k] - v) > 1e-4 * abs(v) + 1e-6:
-            raise AssertionError(f"restored step: {k} {again['terms'][k]} != {v}")
+    if (again["total"], again["terms"]) != (first["total"], first["terms"]):
+        raise AssertionError(f"restored step: losses {again} != {first}")
     drift = max(float((p.detach() - q).abs().max()) for p, q in zip(model.parameters(), after))
-    if drift > 2.1 * f["lr"]:
+    if drift != 0.0:
         raise AssertionError(f"restored step: parameters differ by {drift}")
     aw = model.decoder_assembler.adaptwarps
     if not bool(torch.isfinite(aw).all()) or float(aw.min()) <= 0:
@@ -735,6 +787,7 @@ def flagship_loop(dev: torch.device, work: Path, train_ms_per_step: float):
         timing = np.load(run_dir / "timesinfo_r0.npy", allow_pickle=True).item()
     launches = march_launches()
     seconds = time.perf_counter() - t0  # this path ends here
+    GRID_LAUNCHES["flagship_loop"] = grid_launches()
     lines, steps = log_lines.lines, watched.steps
     step_launches = watched.launches()
     if timing["steps"] != 1 or watched.ms(1) != [round(timing["p50_s"] * 1e3, 3)]:
@@ -809,6 +862,7 @@ def flagship_loop_steady(dev: torch.device, work: Path, train_ms_per_step: float
     with Watched() as watched:
         state = cli_train.main(argv)
     launches = march_launches()  # this path ends here
+    GRID_LAUNCHES["flagship_loop_steady"] = grid_launches()
     n = STEADY_END - LOOP_END
     if state.step != STEADY_END or watched.launches() != (n, n, n) or launches != (n, n, n):
         raise AssertionError(f"loop-steady: step {state.step}, launches {launches}")
@@ -848,6 +902,7 @@ def flagship_cli(dev: torch.device, work: Path):
         names = cli_idc.main(common + ["--output", str(work / "id_conds")] + opts)
     launches = march_launches()
     seconds = time.perf_counter() - t0  # this path ends here
+    GRID_LAUNCHES["flagship_cli"] = grid_launches()
     if result["split"] != "heldout_cameras" or result["items"] != 4 or not all(
             np.isfinite(result[k]) for k in ("psnr_db", "ssim", "lpips_rf")):
         raise AssertionError(f"cli.eval: {result}")
@@ -904,6 +959,7 @@ def bf16_train(dev: torch.device, work: Path, steady_fp32: dict):
         state = cli_train.main(argv + [f"train.maxiter={BF16_END}"])
     launches = march_launches()
     seconds = time.perf_counter() - t0  # this path ends here
+    GRID_LAUNCHES["bf16_train"] = grid_launches()
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     model = state.model
     if {m.dtype for m in model.modules() if hasattr(m, "dtype")} != {torch.bfloat16} or {
@@ -956,6 +1012,7 @@ def bf16_cli(dev: torch.device, work: Path):
                                          str(work / "bf16_renders")] + opts)
     names = cli_idc.main(common + ["--output", str(work / "bf16_id_conds")] + opts)
     launches = march_launches()  # this path ends here
+    GRID_LAUNCHES["bf16_cli"] = grid_launches()
     if result["items"] != 2 or not all(np.isfinite(result[k])
                                        for k in ("psnr_db", "ssim", "lpips_rf")):
         raise AssertionError(f"bf16 cli.eval: {result}")
@@ -1011,6 +1068,7 @@ def dtype_turns(dev: torch.device, work: Path) -> tuple:
             ms[arm] += steps
             p50.append(round(float(np.median(steps)), 3))
     launches = march_launches()  # this path ends here
+    GRID_LAUNCHES["dtype_turns"] = grid_launches()
     n = 4 * (TURN_END - BF16_END)
     if launches != (n, n, n) or any(s[2] != (1, 1, 1) for s in watched.steps) or not all(
             np.isfinite(v) for v in watched.losses):
@@ -1022,61 +1080,125 @@ def dtype_turns(dev: torch.device, work: Path) -> tuple:
     return launches
 
 
-def bf16_repeat(dev: torch.device, work: Path):
-    """What keeps a bfloat16 flagship step from repeating bit for bit: the
-    same state ([bf16-train]'s step-10 checkpoint), batch and noise, stepped
-    twice; then twice more under torch.use_deterministic_algorithms(True,
-    warn_only=True), which warns once for each operation that has no
-    deterministic implementation on the card (what it cannot see: the
-    backward kernel's float atomics) and makes the others deterministic. A
-    measurement: nothing is gated on it but finite values."""
-    import warnings
+def repeat(dev: torch.device, work: Path):
+    """[repeat]: a flagship training step repeats bit for bit. For each arm,
+    float32 from [loop-steady]'s step-10 checkpoint, bfloat16 from
+    [bf16-train]'s and the compacted marcher (``backend: xla``) from
+    [xla-train]'s step-2 checkpoint: the state restored and one normal step
+    taken on one batch with the step's noise, twice, under the deterministic
+    mode every path that builds the model runs in. Every loss term, gradient
+    (after the scrub and clip), parameter and Adam moment and step count must
+    be bitwise equal, or the phase fails; printed: how many of each are."""
+    arms = (("fp32", [], work / "steady"), ("bf16", BF16_OPTS, work / "bf16"),
+            ("xla", ["model.raymarch.backend=xla"], work / "xla_run"))
+    counts = {}
+    reset_march_launches()  # this path starts here
+    for arm, opts, run in arms:
+        cfg = load_config(FLAGSHIP_YAML, [f"assets={work / 'assets'}"] + opts)
+        ds = loop.build_dataset(cfg)
+        model = loop.build_model(cfg, ds, loop.load_uvdata(cfg), dev)
+        optimizer = make_optimizer(model, cfg.train.optimizer, cfg.train.init_learning_rate,
+                                   cfg.train.gamma, cfg.train.lr_scheduler_iter, cfg.train.clip)
+        train_step = make_train_step(model, optimizer, dict(cfg.train.losses), ds.vertmean,
+                                     ds.vertstd, output_set=frozenset(cfg.train.output_set))
+        batch = Uploader(dev).now(loop.to_model_batch(none_collate(
+            [ds[i] for i in range(FLAGSHIP["batch"])])))
 
-    cfg = load_config(FLAGSHIP_YAML, [f"assets={work / 'assets'}"] + BF16_OPTS)
-    ds = loop.build_dataset(cfg)
-    model = loop.build_model(cfg, ds, loop.load_uvdata(cfg), dev)
-    optimizer = make_optimizer(model, cfg.train.optimizer, cfg.train.init_learning_rate,
-                               cfg.train.gamma, cfg.train.lr_scheduler_iter, cfg.train.clip)
-    train_step = make_train_step(model, optimizer, dict(cfg.train.losses), ds.vertmean,
-                                 ds.vertstd, output_set=frozenset(cfg.train.output_set))
-    batch = Uploader(dev).now(loop.to_model_batch(none_collate(
-        [ds[i] for i in range(FLAGSHIP["batch"])])))
-    ckpt = work / "bf16" / "checkpoints"
+        def one_step():
+            state = restore_checkpoint(run / "checkpoints", TrainState(model, optimizer, 0))
+            state, loss, terms = train_step(state, batch,
+                                            generator=step_generator(dev, state.step),
+                                            running_avg_scale=False, use_gt_geo=False,
+                                            residuals_weight=1.0)
+            kept = {("loss", "total"): loss, **{("loss", k): v for k, v in terms.items()}}
+            for name, prm in model.named_parameters():
+                kept[("param", name)] = prm.detach().clone()
+                if prm.grad is not None:
+                    kept[("grad", name)] = prm.grad.detach().clone()
+                for key, val in optimizer.core.state.get(prm, {}).items():
+                    kept[("adam", f"{name}.{key}")] = torch.as_tensor(val).clone()
+            fixed_point.check(dev)
+            return kept
 
-    def one_step():
-        state = restore_checkpoint(ckpt, TrainState(model, optimizer, 0))
-        state, loss, _ = train_step(state, batch, generator=step_generator(dev, state.step),
-                                    running_avg_scale=False, use_gt_geo=False,
-                                    residuals_weight=1.0)
-        return float(loss), [p.detach().clone() for p in model.parameters()]
+        first, second = one_step(), one_step()
+        if first.keys() != second.keys():
+            raise AssertionError(f"repeat {arm}: the two steps kept different tensors")
+        same = {}
+        for key in first:
+            kind = key[0]
+            n, e = same.get(kind, (0, 0))
+            same[kind] = (n + 1, e + int(torch.equal(first[key], second[key])))
+        counts[arm] = {kind: f"{e}/{n}" for kind, (n, e) in same.items()}
+        del model, optimizer, train_step, first, second
+        torch.cuda.empty_cache()
+        if any(e != n for n, e in same.values()):
+            raise AssertionError(f"repeat {arm}: not bitwise equal: {counts[arm]}")
+    launches = march_launches()  # this path ends here
+    GRID_LAUNCHES["repeat"] = grid_launches()
+    log("repeat", equal=json.dumps(counts), fwd_launches=launches[0], bwd_launches=launches[1])
+    return launches
 
-    reset_march_launches()
-    (loss_a, params_a), (loss_b, params_b) = one_step(), one_step()
-    names = [n for n, _ in model.named_parameters()]
-    diffs = [float((a - b).abs().max()) for a, b in zip(params_a, params_b)]
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            loss_c, params_c = one_step()
-        loss_d, params_d = one_step()
-    finally:
-        torch.use_deterministic_algorithms(False)
-    diffs_c = [float((a - c).abs().max()) for a, c in zip(params_a, params_c)]
-    diffs_d = [float((c - d).abs().max()) for c, d in zip(params_c, params_d)]
-    ops = sorted({str(w.message).split(" does not have a deterministic")[0]
-                  for w in caught if "deterministic" in str(w.message)})
-    if not all(np.isfinite(v) for v in (loss_a, loss_b, loss_c)):
-        raise AssertionError(f"bf16-repeat: losses {loss_a, loss_b, loss_c}")
-    largest = sorted(zip(diffs, names), reverse=True)[:6]
-    log("bf16-repeat", loss_a=loss_a, loss_b=loss_b, loss_abs_delta=abs(loss_a - loss_b),
-        param_max_abs_delta=max(diffs), params_changed=sum(d > 0 for d in diffs),
-        params=len(diffs), largest=json.dumps([(n, d) for d, n in largest]),
-        loss_deterministic_mode=loss_c, param_max_abs_delta_vs_deterministic_mode=max(diffs_c),
-        deterministic_mode_twice_loss_abs_delta=abs(loss_c - loss_d),
-        deterministic_mode_twice_param_max_abs_delta=max(diffs_d),
-        deterministic_mode_twice_params_changed=sum(d > 0 for d in diffs_d),
-        launches=march_launches(), nondeterministic_ops=json.dumps(ops))
+
+RESUME_EVERY, RESUME_END = 4, 8
+
+
+def resume_exact(dev: torch.device, work: Path):
+    """[resume-exact]: cli.train on the flagship yaml from scratch to step 8
+    with a checkpoint every 4 steps (the one saved after step 4 holds 5
+    steps), then a second run that finds a copy of that checkpoint in its own
+    output directory, as a preempted run finds its own, and goes on to step
+    8. The two step-8 checkpoints (parameters and adaptwarps, optimizer
+    state, step) must be bitwise equal, and so must the losses the two runs
+    log for steps 5 to 7."""
+    first, second = work / "resume-a", work / "resume-b"
+    argv = ["--config", FLAGSHIP_YAML, "--device", str(dev), f"assets={work / 'assets'}",
+            f"train.checkpoint_every={RESUME_EVERY}", f"train.maxiter={RESUME_END}"]
+    t0 = time.perf_counter()
+    reset_march_launches()  # this path starts here
+    with Watched() as whole:
+        cli_train.main(argv + [f"progress.output_path={first}"])
+    mid = max(n for c in (first / "checkpoints").glob("step_*.pt")
+              if (n := int(c.stem.split("_")[1])) < RESUME_END)
+    (second / "checkpoints").mkdir(parents=True)
+    shutil.copy(first / "checkpoints" / f"step_{mid:08d}.pt", second / "checkpoints")
+    with LogLines() as log_lines, Watched() as resumed:
+        cli_train.main(argv + [f"progress.output_path={second}"])
+    launches = march_launches()  # this path ends here
+    GRID_LAUNCHES["resume_exact"] = grid_launches()
+    if not any("Resumed from" in ln and f"step {mid}" in ln for ln in log_lines.lines):
+        raise AssertionError(f"resume-exact: the second run did not resume at step {mid}")
+    again = whole.losses[mid:]
+    if resumed.losses != again or len(again) != RESUME_END - mid:
+        raise AssertionError(f"resume-exact: losses {resumed.losses} after the resume, "
+                             f"{again} in the whole run")
+    ckpt = [torch.load(run / "checkpoints" / f"step_{RESUME_END:08d}.pt", map_location="cpu",
+                       weights_only=True) for run in (first, second)]
+    unequal = [key for key, a, b in flat_items(ckpt[0], ckpt[1]) if not equal_items(a, b)]
+    if unequal:
+        raise AssertionError(f"resume-exact: the step-{RESUME_END} checkpoints differ in "
+                             f"{unequal[:8]} ({len(unequal)} entries)")
+    log("resume-exact", steps=RESUME_END, resumed_from=mid, losses=again,
+        checkpoint_entries=len(flat_items(ckpt[0], ckpt[1])), checkpoints_equal=True,
+        fwd_launches=launches[0], bwd_launches=launches[1],
+        seconds=round(time.perf_counter() - t0, 3))
+    return launches
+
+
+def flat_items(a, b, key=()):
+    """The (key, a's value, b's value) leaves of two nested checkpoints;
+    a key only one of them has pairs with None."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        return [item for k in sorted(set(a) | set(b), key=str)
+                for item in flat_items(a.get(k), b.get(k), key + (k,))]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)) and len(a) == len(b):
+        return [item for i, (x, y) in enumerate(zip(a, b)) for item in flat_items(x, y, key + (i,))]
+    return [(key, a, b)]
+
+
+def equal_items(a, b) -> bool:
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    return type(a) is type(b) and a == b
 
 
 # ---------------------------------------------------------------------------
@@ -1169,6 +1291,20 @@ def capture_io(work: Path, csv: Path):
     return (h, w)
 
 
+def loaderbench_phase():
+    """[loaderbench]: ``python -m ava256_tpu_torch.loaderbench --frames 12
+    --items 24`` in a child process on this host (one capture of 2 cameras x
+    12 frames at 4096x2668, ShardedLoader items/s with 1, 2 and 4 threads),
+    its JSON line printed under the tag."""
+    t0 = time.perf_counter()
+    line, = child_json([sys.executable, "-m", "ava256_tpu_torch.loaderbench", "--frames", "12",
+                        "--items", "24"], "loaderbench")
+    if not all(line[f"items_per_s_w{n}"] > 0 for n in (1, 2, 4)):
+        raise AssertionError(f"loaderbench: {line}")
+    print(f"[loaderbench] {json.dumps(line)}", flush=True)
+    log("loaderbench-run", seconds=round(time.perf_counter() - t0, 3))
+
+
 def capture_train(dev: torch.device, work: Path, csv: Path, img_hw, flagship_steady: dict):
     """[capture-train]: cli.train on config-4 over the written captures, 2
     steps from scratch, then a resume to step 8 with step 5 traced."""
@@ -1190,6 +1326,7 @@ def capture_train(dev: torch.device, work: Path, csv: Path, img_hw, flagship_ste
                                        f"progress.profile_at={CAPTURE_TRACED}"])
     launches = march_launches()
     seconds = time.perf_counter() - t0  # this path ends here
+    GRID_LAUNCHES["capture_train"] = grid_launches()
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     lines, steps = log_lines.lines, watched.steps
     if state.step != CAPTURE_END or len(steps) != CAPTURE_END:
@@ -1252,6 +1389,7 @@ def capture_cli(dev: torch.device, work: Path, csv: Path, img_hw):
     names = cli_idc.main(common + ["--output", str(work / "capture_id_conds")] + opts)
     launches = march_launches()
     seconds = time.perf_counter() - t0  # this path ends here
+    GRID_LAUNCHES["capture_cli"] = grid_launches()
     if result["split"] != "heldout_cameras" or result["items"] != 2 or not all(
             np.isfinite(result[k]) for k in ("psnr_db", "ssim", "lpips_rf")):
         raise AssertionError(f"capture-cli: eval {result}")
@@ -1275,15 +1413,9 @@ def capture_cli(dev: torch.device, work: Path, csv: Path, img_hw):
 
 CONFIG262K_YAML = "configs/config-synthetic-262k.yaml"
 DDP_FIRST_END, DDP_END = 2, 3  # the launched run: 2 steps, then a resume to 3
-# Step 0 of the launched run must equal the single process's exactly: the same
-# seed, batches and noise, the forward kernel has no atomics, and a mean over
-# one rank is exact. From step 1 on the parameters differ in their last bits:
-# the backward kernel sums over tiles with floating-point atomics, so two runs'
-# gradients differ by up to 6e-6 of their largest value ([flagship-kernel-bwd]
-# rerun_max_rel_diff), and Adam's first steps move a parameter by about
-# lr * sign(g), which such a difference flips where g is near zero. The limit
-# is the one [train] holds a repeated step to: 1e-4 relative.
-DDP_LOSS_RTOL = 1e-4
+# Every loss of the launched run must equal the single process's exactly: the
+# same seed, batches and noise, a training step that repeats bit for bit, a
+# mean over one rank that is exact, and a resume that restores every bit.
 GROUP_LINE = re.compile(r"Process group: backend (\S+), rank (\d+) of (\d+), on (\S+)")
 
 
@@ -1295,6 +1427,7 @@ def ddp_child(out: Path, argv: list) -> int:
     with LogLines() as log_lines, Watched() as watched:
         state = cli_train.main(argv)
     launches = march_launches()  # this path ends here
+    GRID_LAUNCHES["ddp_child"] = grid_launches()
     device = next(state.model.parameters()).device
     out.write_text(json.dumps(dict(
         step=state.step, losses=watched.losses, steptimer_ms=watched.ms(0),
@@ -1303,6 +1436,7 @@ def ddp_child(out: Path, argv: list) -> int:
         resumed_at=[int(m.group(1)) for ln in log_lines.lines
                     if (m := re.match(r"Resumed from .* at step (\d+)", ln))],
         collectives=dict(parallel.COUNTS), group_left=not parallel.is_initialized(),
+        grid_launches=GRID_LAUNCHES["ddp_child"],
         device=str(device), peak_gib=torch.cuda.max_memory_allocated(device) / 2**30)))
     return 0
 
@@ -1320,6 +1454,7 @@ def ddp_train(dev: torch.device, work: Path):
                                 f"assets={work / 'assets'}", f"train.maxiter={DDP_END}",
                                 f"progress.output_path={work / 'run262k'}"])
     launches = march_launches()  # and ends here
+    GRID_LAUNCHES["ddp_train"] = grid_launches()
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     single_s = time.perf_counter() - t0
     if state.step != DDP_END or [s[2] for s in watched.steps] != [(1, 1, 1)] * DDP_END:
@@ -1356,18 +1491,14 @@ def ddp_train(dev: torch.device, work: Path):
     single, launched = watched.losses, first["losses"] + resumed["losses"]
     if not all(np.isfinite(v) for v in single + launched):
         raise AssertionError(f"ddp-train: losses {single} / {launched}")
-    if launched[0] != single[0]:
-        raise AssertionError(f"ddp-train: step 0 of the launched run {launched[0]!r} is not the "
-                             f"single process's {single[0]!r}")
-    rel = [abs(a - b) / abs(b) for a, b in zip(launched[1:], single[1:])]
-    if max(rel) > DDP_LOSS_RTOL:
-        raise AssertionError(f"ddp-train: steps 1.. differ by {rel} (limit {DDP_LOSS_RTOL})")
+    if launched != single:
+        raise AssertionError(f"ddp-train: the launched run's losses {launched!r} are not the "
+                             f"single process's {single!r}")
     ms = watched.ms(0)
     steady = ms[1:] + first["steptimer_ms"][1:]  # not the first step of a call
     log("ddp-train", config=CONFIG262K_YAML, backend=group[0], world=1, steps_single=DDP_END,
         steps_launched=f"{DDP_FIRST_END}+{DDP_END - DDP_FIRST_END}",
-        losses_single=single, losses_launched=launched, step0_equal=True,
-        loss_rel_diff_step1=rel[0], loss_rel_diff_step2_resumed=rel[1], tol=DDP_LOSS_RTOL,
+        losses_single=single, losses_launched=launched, losses_equal=True,
         grad_allreduces=[first["collectives"]["all_reduce_gradients"],
                          resumed["collectives"]["all_reduce_gradients"]],
         steptimer_ms_single=ms, steptimer_ms_launched=first["steptimer_ms"],
@@ -1378,6 +1509,9 @@ def ddp_train(dev: torch.device, work: Path):
         fwd_launches=launches[0] + first["launches"][0] + resumed["launches"][0],
         bwd_launches=launches[1] + first["launches"][1] + resumed["launches"][1],
         single_process_s=round(single_s, 3), seconds=round(seconds, 3))
+    GRID_LAUNCHES["ddp_train"] = tuple(
+        a + b + c for a, b, c in zip(GRID_LAUNCHES["ddp_train"], first["grid_launches"],
+                                     resumed["grid_launches"]))
     total = tuple(a + b + c for a, b, c in zip(launches, first["launches"], resumed["launches"]))
     return total, state
 
@@ -1513,7 +1647,16 @@ def flagship_kernel_bwd(args, state, plain_state, boxes: int, samples: int, dev:
         for name, x in zip(("d_template", "d_warp", "d_affine"), run1):
             if x is not None and not bool(torch.isfinite(x).all()):
                 raise AssertionError(f"{phase}: non-finite {name}")
+        if rerun != 0.0 or not all(torch.equal(a, b) for a, b in zip(run1, run2)
+                                   if a is not None):
+            raise AssertionError(f"{phase}: two runs differ (max rel {rerun})")
         del run2
+        # bits of headroom of each template channel's fixed-point bound over
+        # its largest gradient (the kernel's header says what they cost)
+        bounds, _ = rc.fixed_point_bounds(g, scal, tpl, warp, dt, fadescale, fadeexp, nbuf)
+        headroom = [round(math.log2(float(b) / float(run1[0][..., c].abs().max())), 2)
+                    for c, b in enumerate(bounds[:4].tolist())]
+        fixed_point.check(dev)
         kernel_ms = cuda_ms(kernel, reps=5)
         no_state = kernel(st=None)  # the wrapper runs the forward kernel for the state
         no_state_diff = max(float((a - b).abs().max() / a.abs().max())
@@ -1524,8 +1667,9 @@ def flagship_kernel_bwd(args, state, plain_state, boxes: int, samples: int, dev:
         sub_ms = cuda_ms(lambda: kernel(some, some_state), reps=5)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        plain = rc.march_tiles_bwd_plain(*some, tpl, warp, dt, fadescale, fadeexp, nbuf,
-                                         state=some_plain_state)
+        with plain_check():
+            plain = rc.march_tiles_bwd_plain(*some, tpl, warp, dt, fadescale, fadeexp, nbuf,
+                                             state=some_plain_state)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
     errs = {name: check_grad(f"{phase} {name}", a, b)
@@ -1544,6 +1688,7 @@ def flagship_kernel_bwd(args, state, plain_state, boxes: int, samples: int, dev:
     log(phase, tiles=ntiles, samples=samples, marched_samples=fwd_samples,
         chained_samples=chained, bytes=nbytes, kernel_ms=round(kernel_ms, 4),
         kernel_without_state_ms=round(no_state_ms, 4), rerun_max_rel_diff=rerun,
+        headroom_bits=headroom,
         without_state_max_rel_diff=no_state_diff, plain_tiles=nsub,
         plain_tiles_of=f"every {BWD_PLAIN_STRIDE}th tile",
         kernel_ms_on_those_tiles=round(sub_ms, 4), plain_ms_on_those_tiles=round(plain_ms, 3),
@@ -1555,6 +1700,123 @@ def flagship_kernel_bwd(args, state, plain_state, boxes: int, samples: int, dev:
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 tiles=ntiles, plain_tiles=nsub, ms_on_plain_tiles=sub_ms,
                 ms_without_state=no_state_ms, two_march_ops_ms=design_ops_ms)
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: the grid-sample kernel
+# ---------------------------------------------------------------------------
+
+GRID_SITES = ("models.encoders.identity", "models.decoders.geometry")
+
+
+def record_grid_samples(model, batch, dev: torch.device) -> list:
+    """The (site, img, grid) of every grid_sample_2d call of one training
+    forward of ``model`` on ``batch``: the identity encoder's warp of each
+    level of both bias pyramids and the geometry decoder's vertex sampling,
+    at the model's real shapes and values."""
+    import importlib
+
+    calls, saved = [], {}
+
+    def recorder(site, fn):
+        def rec(img, grid, align_corners=False):
+            dtype = torch.promote_types(img.dtype, grid.dtype)
+            calls.append((site, img.detach().to(dtype).clone(),
+                          grid.detach().to(dtype).contiguous(), align_corners))
+            return fn(img, grid, align_corners)
+        return rec
+
+    mods = {site: importlib.import_module(f"ava256_tpu_torch.{site}") for site in GRID_SITES}
+    try:
+        for site, mod in mods.items():
+            saved[site] = mod.grid_sample_2d
+            mod.grid_sample_2d = recorder(site.split(".")[-1], saved[site])
+        with torch.no_grad():
+            model(target_neut_avgtex=batch["neut_avgtex"], target_neut_verts=batch["neut_verts"],
+                  idindex=batch["idindex"], camindex=batch["camindex"], deterministic=True,
+                  output_set=frozenset({"irgbrec"}), **{k: batch[k] for k in BATCH_MODEL_KEYS})
+    finally:
+        for site, mod in mods.items():
+            mod.grid_sample_2d = saved[site]
+    return calls
+
+
+def plain_grid_sample(img, grid, align, gout):
+    """F.grid_sample and its own backward (PyTorch's float atomics: outside
+    the deterministic mode, for this check only)."""
+    out = gs.grid_sample_plain(img, grid, align)
+    return (out,) + gs.grid_sample_bwd_plain(img, grid, gout, align)
+
+
+def grid_sample_phase(calls: list, dev: torch.device) -> dict:
+    """[grid-sample]: the kernels against F.grid_sample (output rtol = atol =
+    RTOL, gradients at the backward limits) on every recorded call, a rerun
+    bitwise equal, the kernels' forward + backward ms over one step's calls
+    beside F.grid_sample's (forward + autograd backward) and the bytes bound
+    (inputs read once, outputs written once)."""
+    k = gs.grid_sample_kernels
+    gen = torch.Generator(device=dev).manual_seed(11)
+    gouts = [torch.randn(img.shape[:1] + grid.shape[1:3] + img.shape[3:], device=dev,
+                         generator=gen) for _, img, grid, _ in calls]
+    worst_out = worst_grad = 0.0
+    shapes = []
+    was = torch.are_deterministic_algorithms_enabled()
+    for (site, img, grid, align), gout in zip(calls, gouts):
+        out = k.forward(img, grid, align)
+        gimg, ggrid = k.backward(img, grid, gout, align)
+        out2 = k.forward(img, grid, align)
+        gimg2, ggrid2 = k.backward(img, grid, gout, align)
+        if not (torch.equal(out, out2) and torch.equal(gimg, gimg2) and torch.equal(ggrid, ggrid2)):
+            raise AssertionError(f"grid-sample {site} {tuple(img.shape)}: a rerun differs")
+        torch.use_deterministic_algorithms(False)
+        try:
+            ref, rimg, rgrid = plain_grid_sample(img, grid, align, gout)
+        finally:
+            torch.use_deterministic_algorithms(was)
+        worst_out = max(worst_out, check_close(f"grid-sample {site} out", out, ref))
+        worst_grad = max(worst_grad, check_grad(f"grid-sample {site} d_img", gimg, rimg),
+                         check_grad(f"grid-sample {site} d_grid", ggrid, rgrid))
+        shapes.append(f"{site}:{tuple(img.shape)}->{tuple(grid.shape[1:3])}")
+    fixed_point.check(dev)
+
+    def kernels():
+        for (_, img, grid, align), gout in zip(calls, gouts):
+            k.forward(img, grid, align)
+            k.backward(img, grid, gout, align)
+
+    def plain():
+        for (_, img, grid, align), gout in zip(calls, gouts):
+            plain_grid_sample(img, grid, align, gout)
+
+    leaves = [(img.requires_grad_(), grid.requires_grad_()) for _, img, grid, _ in calls]
+
+    def library():
+        for ((_, _, _, align), (img, grid)), gout in zip(zip(calls, leaves), gouts):
+            out = torch.nn.functional.grid_sample(img.permute(0, 3, 1, 2), grid,
+                                                  align_corners=align)
+            torch.autograd.grad(out, (img, grid), gout.permute(0, 3, 1, 2))
+
+    saved = (k.launches, k.bwd_launches)
+    kernel_ms = cuda_ms(kernels, reps=5)
+    k.launches, k.bwd_launches = saved  # the timing's launches are not the main path's
+    torch.use_deterministic_algorithms(False)
+    try:
+        plain_ms = cuda_ms(plain, reps=5)
+        library_ms = cuda_ms(library, reps=5)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    for img, grid in leaves:
+        img.requires_grad_(False), grid.requires_grad_(False)
+    nbytes = sum(4 * (2 * img.numel() + 2 * grid.numel() + 2 * gout.numel())
+                 + 4 * (img.numel() + grid.numel()) for (_, img, grid, _), gout in
+                 zip(calls, gouts))  # forward: img, grid, out; backward: + gout, gimg, ggrid
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log("grid-sample", calls=len(calls), shapes=json.dumps(shapes), max_abs_err=worst_out,
+        max_rel_err_grad=worst_grad, rerun_bitwise_equal=True, kernel_ms=round(kernel_ms, 4),
+        plain_ms=round(plain_ms, 4), library_ms=round(library_ms, 4), bytes=nbytes,
+        bound_ms=round(bound_ms, 5))
+    return dict(max_abs_err=max(worst_out, worst_grad), ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by="bytes")
 
 
 # ---------------------------------------------------------------------------
@@ -1715,6 +1977,7 @@ def xla_train(dev: torch.device, work: Path):
         finally:
             loop.make_train_step = make
     launches = march_launches()  # this path ends here
+    GRID_LAUNCHES["xla_train"] = grid_launches()
     seconds = time.perf_counter() - t0
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     if state.model.raymarcher.backend != "xla" or state.step != 2 or len(watched.steps) != 2:
@@ -1779,8 +2042,10 @@ def bench_phase():
     if not all(np.isfinite(v) for v in numbers(line)) or not line["value"] > 0:
         raise AssertionError(f"bench: values of {line}")
     steps = line["timing"]["steps"]
-    if line["timing"]["march_launches"] != [2 + 3 * steps] * 2:
-        raise AssertionError(f"bench: march launches {line['timing']['march_launches']} in "
+    GRID_LAUNCHES["bench"] = tuple(line["timing"]["grid_sample_launches"])
+    if line["timing"]["march_launches"] != [2 + 3 * steps] * 2 or min(GRID_LAUNCHES["bench"]) < 1:
+        raise AssertionError(f"bench: march launches {line['timing']['march_launches']}, "
+                             f"grid-sample launches {GRID_LAUNCHES['bench']} in "
                              f"{2 + 3 * steps} steps")
     print(f"[bench] {json.dumps(line)}", flush=True)
     log("bench-run", seconds=round(seconds, 3))
@@ -1806,7 +2071,7 @@ def main() -> int:
         torch=torch.__version__, cuda=torch.version.cuda, smi=repr(smi))
 
     t0 = time.perf_counter()
-    libs = [rc.MARCH_FWD_LIB, rc.MARCH_BWD_LIB, native.DATAIO_LIB]
+    libs = [rc.MARCH_FWD_LIB, rc.MARCH_BWD_LIB, gs.GRID_SAMPLE_LIB, native.DATAIO_LIB]
     build_all(libs)
     ptxas = [ln.strip() for lib in libs for ln in lib.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
@@ -1820,6 +2085,7 @@ def main() -> int:
 
     model, ds, batches, mi, render_launches, fwd_ms = flagship_render(dev)
     train_launches, step_ms = flagship_train(model, ds, batches, dev)
+    gsk = grid_sample_phase(record_grid_samples(model, batches[0], dev), dev)
     del model, batches
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as work:
@@ -1837,12 +2103,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         turns_launches = dtype_turns(dev, work)
         torch.cuda.empty_cache()
-        bf16_repeat(dev, work)
-        torch.cuda.empty_cache()
         xla_train_launches, xla_step_ms = xla_train(dev, work)
+        torch.cuda.empty_cache()
+        repeat_launches = repeat(dev, work)
+        torch.cuda.empty_cache()
+        resume_launches = resume_exact(dev, work)
         torch.cuda.empty_cache()
         csv = capture_write(work)
         img_hw = capture_io(work, csv)
+        loaderbench_phase()
         capture_launches = capture_train(dev, work, csv, img_hw, steady)
         torch.cuda.empty_cache()
         capture_cli_launches = capture_cli(dev, work, csv, img_hw)
@@ -1868,14 +2137,15 @@ def main() -> int:
              replaces="ava256_tpu/ops/raymarch_pallas.py:831",
              launches=render_launches + train_launches[0] + loop_launches[0] + cli_launches[0]
              + steady_launches[0] + bf16_train_launches[0] + bf16_cli_launches[0]
-             + turns_launches[0]
+             + turns_launches[0] + repeat_launches[0] + resume_launches[0]
              + capture_launches[0] + capture_cli_launches[0]
              + ddp_launches[0] + xla_train_launches[0] + bench_launches[0],
              launches_render=render_launches, launches_train=train_launches[0],
              launches_loop=loop_launches[0], launches_cli=cli_launches[0],
              launches_loop_steady=steady_launches[0],
              launches_bf16_train=bf16_train_launches[0], launches_bf16_cli=bf16_cli_launches[0],
-             launches_dtype_turns=turns_launches[0],
+             launches_dtype_turns=turns_launches[0], launches_repeat=repeat_launches[0],
+             launches_resume_exact=resume_launches[0],
              launches_capture_train=capture_launches[0],
              launches_capture_cli=capture_cli_launches[0], launches_ddp_train=ddp_launches[0],
              launches_xla_train=xla_train_launches[0], launches_bench=bench_launches[0],
@@ -1893,19 +2163,20 @@ def main() -> int:
              replaces="ava256_tpu/ops/raymarch_pallas.py:908",
              launches=train_launches[1] + loop_launches[1] + cli_launches[1]
              + steady_launches[1] + bf16_train_launches[1] + bf16_cli_launches[1]
-             + turns_launches[1]
+             + turns_launches[1] + repeat_launches[1] + resume_launches[1]
              + capture_launches[1] + capture_cli_launches[1]
              + ddp_launches[1] + xla_train_launches[1] + bench_launches[1],
              launches_train=train_launches[1], launches_loop=loop_launches[1],
              launches_cli=cli_launches[1], launches_loop_steady=steady_launches[1],
              launches_bf16_train=bf16_train_launches[1], launches_dtype_turns=turns_launches[1],
+             launches_repeat=repeat_launches[1], launches_resume_exact=resume_launches[1],
              launches_capture_train=capture_launches[1],
              launches_capture_cli=capture_cli_launches[1], launches_ddp_train=ddp_launches[1],
              launches_xla_train=xla_train_launches[1], launches_bench=bench_launches[1],
              # launches that were handed the forward's saved state (all of them)
              launches_with_state=train_launches[2] + loop_launches[2] + steady_launches[2]
-             + bf16_train_launches[2] + turns_launches[2] + capture_launches[2]
-             + ddp_launches[2],
+             + bf16_train_launches[2] + turns_launches[2] + repeat_launches[2]
+             + resume_launches[2] + capture_launches[2] + ddp_launches[2],
              max_abs_err=max(small_bwd_err, kb["max_abs_err"], kb262["max_abs_err"]), ms=kb["ms"],
              plain_ms=kb["plain_ms"], bound_ms=kb["bound_ms"], bound_by=kb["bound_by"],
              library_ms=None,
@@ -1922,7 +2193,21 @@ def main() -> int:
              bound_ms_262k=kb262["bound_ms"], bound_by_262k=kb262["bound_by"],
              tiles_262k=kb262["tiles"], plain_tiles_262k=kb262["plain_tiles"],
              ms_on_plain_tiles_262k=kb262["ms_on_plain_tiles"],
-             ms_without_state_262k=kb262["ms_without_state"])]}
+             ms_without_state_262k=kb262["ms_without_state"]),
+        dict(name="grid_sample", route="cuda", source=src + "grid_sample.cu",
+             # F.grid_sample on the card; JAX samples with XLA gathers there
+             replaces="ava256_tpu/ops/grid_sample.py:34 (no pallas_call)",
+             launches=sum(f + b for f, b in GRID_LAUNCHES.values()),
+             launches_fwd=sum(f for f, _ in GRID_LAUNCHES.values()),
+             launches_bwd=sum(b for _, b in GRID_LAUNCHES.values()),
+             launches_by_path=GRID_LAUNCHES,
+             # ms, plain_ms, library_ms: forward + backward over one training
+             # forward's calls (the pyramids' levels and the vertex sampling)
+             max_abs_err=gsk["max_abs_err"], ms=gsk["ms"], plain_ms=gsk["plain_ms"],
+             bound_ms=gsk["bound_ms"], bound_by=gsk["bound_by"],
+             library_ms=gsk["library_ms"])]}
+    if min(sum(v) for v in GRID_LAUNCHES.values()) < 1:
+        raise AssertionError(f"a main path did not launch the grid-sample kernels: {GRID_LAUNCHES}")
     log("done", seconds=round(time.perf_counter() - t_start, 3), ms_per_forward=fwd_ms,
         ms_per_train_step=step_ms, xla_train_p50_ms=xla_step_ms,
         xla_march_fwd_ms=round(xla["xla_fwd_ms"], 3),

@@ -13,9 +13,10 @@ PyTorch and the CUDA toolkit:
 Without a card every test skips. Forward tolerance 1e-5: the kernel runs the
 plain version's fp32 operations in the same order (built without FMA
 contraction); what remains is ulp-level ``expf`` and division rounding. The
-backward kernel sums over rays, rows and tiles with floating-point atomics, in
-an order that changes from run to run: its gradients are held to
-max |d| <= BWD_TOL * max |ref| and cosine > 0.99999. The forward kernel's
+backward kernel sums over rays, rows and tiles as integers at a fixed-point
+scale, so two runs give the same bits (held bitwise), and its gradients are
+held to the plain version's float sums at max |d| <= BWD_TOL * max |ref| and
+cosine > 0.99999; so are the grid-sample kernels' against F.grid_sample. The forward kernel's
 second output, the rays' saturation state, is held to the forward tolerance,
 and the backward kernel must give the same gradients (to BWD_TOL) whether it
 is handed that state or has the wrapper run the forward kernel for it. A
@@ -428,3 +429,81 @@ def test_compacted_marcher_matches_the_kernels(card):
             assert v > 0.9999, (k, rep)
         if k.startswith("grad_") and k.endswith("_rel_err"):
             assert v <= 1e-3, (k, rep)
+
+
+@pytest.mark.parametrize("bs,warp,tile,opaque", [
+    (8, False, 16, True), (8, True, 8, False), (2, False, 8, False), (16, True, 16, False),
+])
+def test_bwd_kernel_twice_is_bitwise_equal(card, bs, warp, tile, opaque):
+    """The backward kernel's sums are integer sums at a fixed-point scale:
+    two runs on the same inputs give the same bits, gradients of the
+    template, the warp and the affines alike; no addend is lost."""
+    from ava256_tpu_torch.ops import fixed_point
+
+    s = raymarch_scene(n=2, h=37, w=35, k3=3, bs=bs, warp=warp, seed=bs)
+    dev = _tile_args(s, card, tile, 27, opaque=opaque)
+    _, state = rc.march_tiles(*dev, with_state=True)
+    gid, scal, t_o, t_d, t_mm, *rest = dev
+    g = torch.randn((gid.shape[0], 4, t_o.shape[2]), device=card,
+                    generator=torch.Generator(device=card).manual_seed(4))
+    runs = [rc.march_tiles_bwd(gid, scal, t_o, t_d, t_mm, g, *rest, state=state)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            assert (a is None and b is None) or torch.equal(a, b)
+    fixed_point.check(card)
+
+
+def test_bwd_kernel_flag_raises(card):
+    """A negative density, the premise of the fixed-point bound, sets the
+    device flag, and the check the training loop makes with each step's
+    loss raises on it: never zeroed or hidden."""
+    from ava256_tpu_torch.ops import fixed_point
+
+    s = raymarch_scene(n=2, h=37, w=35, k3=3, bs=8, warp=False, seed=8)
+    gid, scal, t_o, t_d, t_mm, tpl, *rest = _tile_args(s, card, 16, 27)
+    tpl = tpl.clone()
+    tpl[0, 0, 0, 0, 3] = -1.0
+    g = torch.ones((gid.shape[0], 4, t_o.shape[2]), device=card)
+    fixed_point.check(card)
+    rc.march_tiles_bwd_kernel(gid, scal, t_o, t_d, t_mm, g, tpl, *rest)
+    with pytest.raises(fixed_point.FixedPointOverflow, match="negative"):
+        fixed_point.check(card)
+    fixed_point.check(card)  # the flag was cleared
+
+
+@pytest.mark.parametrize("shape", [
+    ((4, 64, 64, 16), (4, 64, 64, 2)),  # a pyramid level on the warp grid
+    ((4, 32, 32, 3), (4, 7306, 1, 2)),  # the vertex sampling
+    ((2, 9, 11, 300), (2, 6, 7, 2)),    # more channels than lanes per pixel
+])
+def test_grid_sample_kernel_matches_plain_and_reruns_bitwise(card, shape):
+    from ava256_tpu_torch.ops import fixed_point
+    from ava256_tpu_torch.ops import grid_sample as gs
+
+    gen = torch.Generator(device=card).manual_seed(6)
+    img = torch.randn(shape[0], device=card, generator=gen)
+    grid = torch.rand(shape[1], device=card, generator=gen) * 2.6 - 1.3
+    gout = torch.randn(shape[0][:1] + shape[1][1:3] + shape[0][3:], device=card, generator=gen)
+    k = gs.grid_sample_kernels
+    before = (k.launches, k.bwd_launches)
+    out = gs.GridSample.apply(img, grid, False)
+    assert (k.launches, k.bwd_launches) == (before[0] + 1, before[1])
+    runs = [k.backward(img, grid, gout) for _ in range(2)]
+    assert torch.equal(out, k.forward(img, grid))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(False)  # F.grid_sample's backward, the plain version
+    try:
+        ref = gs.grid_sample_plain(img, grid)
+        ref_img, ref_grid = gs.grid_sample_bwd_plain(img, grid, gout)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=1e-5, atol=1e-5)
+    for name, a, b in (("d_img", runs[0][0], ref_img), ("d_grid", runs[0][1], ref_grid)):
+        a, b = a.cpu().double(), b.cpu().double()
+        err = float((a - b).abs().max() / b.abs().max())
+        cos = float((a * b).sum() / torch.sqrt((a * a).sum() * (b * b).sum()))
+        assert err <= BWD_TOL and cos > 0.99999, (name, err, cos)
+    fixed_point.check(card)

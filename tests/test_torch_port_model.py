@@ -299,7 +299,8 @@ def test_port_imports_without_jax():
         "import ava256_tpu_torch.cli.train, ava256_tpu_torch.cli.eval\n"
         "import ava256_tpu_torch.cli.render, ava256_tpu_torch.cli.generate_id_cond\n"
         "import ava256_tpu_torch.bench, ava256_tpu_torch.kbench\n"
-        "import ava256_tpu_torch.flagship_runs\n"
+        "import ava256_tpu_torch.flagship_runs, ava256_tpu_torch.loaderbench\n"
+        "import ava256_tpu_torch.ops.fixed_point, ava256_tpu_torch.ops.grid_sample\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'ava256_tpu', 'yaml',\n"
