@@ -20,6 +20,13 @@
 // magnitude (the bound's premises broken, or a non-finite addend under a
 // finite scale) is not added: it sets bit 0 of *flag, which the caller
 // raises on (ops/raymarch_cuda.check_fixed_point).
+//
+// For a caller that computes its bound on the device (grid_sample.cu):
+// scale_for, the same rule as ops/fixed_point.scale_for, exact by frexp;
+// zero_table and to_float take an optional device count that predicates
+// them (nothing to do when it is 0), so that a fallback route can sit in
+// the stream behind the route that usually does the work and cost a few
+// idle blocks when it is not needed.
 
 #pragma once
 
@@ -42,22 +49,50 @@ __device__ __forceinline__ void add(unsigned long long* dst, float v, float scal
   atomicAdd(dst, static_cast<unsigned long long>(__float2ll_rn(x)));
 }
 
-// out[i] = float(q[i]) * inv_scale[i % period]: the table back in float32.
+// out[i] = float(q[i]) * inv_scale[i % Period]: the table back in float32;
+// nothing when count is given and *count is 0.
+template <int Period>
 __global__ void to_float(const long long* __restrict__ q, float* __restrict__ out, size_t n,
-                         const float* __restrict__ inv_scale, int period) {
+                         const float* __restrict__ inv_scale, const int* count) {
+  if (count && *count == 0) return;
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
-    out[i] = __ll2float_rn(q[i]) * inv_scale[i % period];
+    out[i] = __ll2float_rn(q[i]) * inv_scale[i % Period];
   }
 }
 
+template <int Period>
 inline cudaError_t launch_to_float(const long long* q, float* out, size_t n,
-                                   const float* inv_scale, int period, cudaStream_t stream) {
+                                   const float* inv_scale, cudaStream_t stream,
+                                   const int* count = nullptr, size_t max_blocks = 65535 * 8) {
   if (n == 0) return cudaSuccess;
   const size_t blocks = (n + 255) / 256;
-  to_float<<<(unsigned)(blocks < 65535 * 8 ? blocks : 65535 * 8), 256, 0, stream>>>(
-      q, out, n, inv_scale, period);
+  to_float<Period><<<(unsigned)(blocks < max_blocks ? blocks : max_blocks), 256, 0, stream>>>(
+      q, out, n, inv_scale, count);
   return cudaGetLastError();
+}
+
+// 2^k with k = clamp(floor(61 - log2 bound), -126, 126), computed exactly:
+// bound = m 2^e with m in [0.5, 1), so log2 bound = e - 1 when m = 0.5 and
+// lies in (e - 1, e) otherwise. NaN for a bound that is not finite.
+__device__ __forceinline__ float scale_for(double bound) {
+  if (!isfinite(bound) || bound < 0.0) return __int_as_float(0x7fc00000);
+  int k = 126;  // log2 0 = -inf
+  if (bound > 0.0) {
+    int e;
+    const double m = frexp(bound, &e);
+    k = min(126, max(-126, (m == 0.5 ? 62 : 61) - e));
+  }
+  return ldexpf(1.0f, k);
+}
+
+// q[i] = 0 for i < n, unless count is given and *count is 0.
+__global__ void zero_table(long long* __restrict__ q, long long n, const int* count) {
+  if (count && *count == 0) return;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    q[i] = 0;
+  }
 }
 
 }  // namespace fxp

@@ -441,10 +441,10 @@ int mvp_march_bwd(const int* gid, const float* scal, const float* ray_o, const f
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const size_t cells = (size_t)nboxes * bs * bs * bs;
-  if ((err = fxp::launch_to_float(qtmpl, dtmpl, cells * 4, inv_tmpl, 4, st)) != cudaSuccess)
+  if ((err = fxp::launch_to_float<4>(qtmpl, dtmpl, cells * 4, inv_tmpl, st)) != cudaSuccess)
     return (int)err;
   if (!warp) return (int)cudaSuccess;
-  return (int)fxp::launch_to_float(qwarp, dwarp, cells * 3, inv_warp, 3, st);
+  return (int)fxp::launch_to_float<3>(qwarp, dwarp, cells * 3, inv_warp, st);
 }
 
 }  // extern "C"

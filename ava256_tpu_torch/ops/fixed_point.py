@@ -50,11 +50,17 @@ class FixedPointOverflow(RuntimeError):
 
 def scale_for(bound: torch.Tensor) -> torch.Tensor:
     """float32 2^k with k = clamp(floor(BITS - log2 bound), K_MIN, K_MAX); NaN
-    where ``bound`` is not finite. Elementwise, on the bound's device."""
+    where ``bound`` is not finite. Elementwise, on the bound's device.
+    Exact, as ``csrc/fixed_point.cuh`` ``fxp::scale_for`` computes it on the
+    device: bound = m 2^e with m in [0.5, 1), so log2 bound is e - 1 when
+    m = 0.5 and lies in (e - 1, e) otherwise; a bound of 0 gives K_MAX."""
     bound = bound.double()
-    k = torch.clamp(torch.floor(BITS - torch.log2(bound)), K_MIN, K_MAX)
+    m, e = torch.frexp(bound)
+    k = torch.where(m == 0.5, BITS + 1 - e, BITS - e).double()
+    k = torch.clamp(torch.where(bound == 0, torch.full_like(k, K_MAX), k), K_MIN, K_MAX)
     scale = torch.exp2(k).float()
-    return torch.where(torch.isfinite(bound), scale, torch.full_like(scale, float("nan")))
+    ok = torch.isfinite(bound) & (bound >= 0)
+    return torch.where(ok, scale, torch.full_like(scale, float("nan")))
 
 
 def _key(device) -> torch.device:

@@ -29,13 +29,22 @@ Phases (each prints one line; any failure exits non-zero):
    saved before the last of them, restored, and that step taken again (its
    losses and parameters bitwise equal to the first take's);
 5b. ``[grid-sample]``: the grid-sample kernels (``csrc/grid_sample.cu``)
-   against ``F.grid_sample`` on every call of one training forward of that
-   model (each level of both bias pyramids of the identity encoder's warp,
-   batch 4, up to 1024^2, and the geometry decoder's vertex sampling):
-   outputs at rtol = atol = 1e-5, gradients at the backward limits, a
-   rerun bitwise equal; printed: the kernels' forward + backward ms over
-   those calls beside F.grid_sample's and its plain version's, and the
-   bytes bound;
+   on every call of one training forward of that model (each level of both
+   bias pyramids of the identity encoder's warp, batch 4, up to 1024^2, and
+   the geometry decoder's vertex sampling), with the layouts the model
+   hands them (channels-last where the convolutions run channels-last, the
+   warp grid expanded over the batch, gout in the image's layout): the
+   image gradient bitwise equal to ``grid_sample_bwd_fixed_plain`` at the
+   kernel's scale, on a warp level the owner and scatter routes (each
+   forced) bitwise equal, the device escape count 0 and equal to its plain
+   restatement, the route the one its size picks; against
+   ``F.grid_sample`` outputs at rtol = atol = 1e-5, gradients at the
+   backward limits; a rerun bitwise equal; at most 5 kernels a warp level's
+   backward; printed: each call's forward and backward ms, route and
+   backward kernels (``[grid-sample-call]``), the kernels' forward +
+   backward ms over those calls beside F.grid_sample's and its plain
+   version's, and the bytes bound; the traced steps of the training phases
+   print the grid-sample kernels' count and ms;
 6. the training entry point, ``cli.train.main`` (what ``python -m
    ava256_tpu_torch.cli.train`` runs) on configs/config-synthetic-flagship.yaml
    with a topology .obj written into a temporary ``assets=`` directory: two
@@ -289,12 +298,21 @@ def reset_march_launches() -> None:
 GRID_LAUNCHES = {}
 
 
+# backward calls of the main paths read by grid_launches(), by route, and the
+# kernels they launched
+GRID_ROUTES = dict(owner=0, scatter=0, bwd_kernels=0)
+
+
 def grid_launches() -> tuple:
-    return gs.grid_sample_kernels.launches, gs.grid_sample_kernels.bwd_launches
+    k = gs.grid_sample_kernels
+    GRID_ROUTES["owner"] += k.owner_launches
+    GRID_ROUTES["scatter"] += k.scatter_launches
+    GRID_ROUTES["bwd_kernels"] += k.bwd_kernels
+    return k.launches, k.bwd_launches
 
 
 def reset_grid_launches() -> None:
-    gs.grid_sample_kernels.launches = gs.grid_sample_kernels.bwd_launches = 0
+    gs.grid_sample_kernels.reset()
 
 
 @contextlib.contextmanager
@@ -682,6 +700,7 @@ def trace_busy(path) -> dict:
     by_name = {}
     for e in kernels:
         by_name[e["name"][:60]] = by_name.get(e["name"][:60], 0.0) + e["dur"] / 1e3
+    grid_sample = [e for e in kernels if any(n in e["name"] for n in GS_KERNELS)]
     launches = [e for e in runtime if "Launch" in e["name"]]
     # host ops inside the step by self time (their time less their children's),
     # on every thread (the backward runs on the autograd engine's own)
@@ -699,6 +718,8 @@ def trace_busy(path) -> dict:
     return dict(
         step_ms=step[0]["dur"] / 1e3, kernels=len(kernels),
         kernel_ms=sum(e["dur"] for e in kernels) / 1e3,
+        grid_sample_kernels=len(grid_sample),
+        grid_sample_kernel_ms=sum(e["dur"] for e in grid_sample) / 1e3,
         copy_ms=sum(e["dur"] for e in device if e["cat"] != "kernel") / 1e3,
         idle_gaps_under_1ms_ms=small / 1e3, idle_gaps_over_1ms_ms=large / 1e3,
         runtime_calls=len(runtime), runtime_ms=sum(e["dur"] for e in runtime) / 1e3,
@@ -1713,7 +1734,9 @@ def record_grid_samples(model, batch, dev: torch.device) -> list:
     """The (site, img, grid) of every grid_sample_2d call of one training
     forward of ``model`` on ``batch``: the identity encoder's warp of each
     level of both bias pyramids and the geometry decoder's vertex sampling,
-    at the model's real shapes and values."""
+    at the model's real shapes, values and layouts (the image kept by a
+    clone in its memory format, channels-last where the convolutions ran
+    channels-last; the grid as it comes, expanded over the batch)."""
     import importlib
 
     calls, saved = [], {}
@@ -1721,8 +1744,8 @@ def record_grid_samples(model, batch, dev: torch.device) -> list:
     def recorder(site, fn):
         def rec(img, grid, align_corners=False):
             dtype = torch.promote_types(img.dtype, grid.dtype)
-            calls.append((site, img.detach().to(dtype).clone(),
-                          grid.detach().to(dtype).contiguous(), align_corners))
+            calls.append((site, img.detach().to(dtype).clone(), grid.detach().to(dtype),
+                          align_corners))
             return fn(img, grid, align_corners)
         return rec
 
@@ -1748,36 +1771,95 @@ def plain_grid_sample(img, grid, align, gout):
     return (out,) + gs.grid_sample_bwd_plain(img, grid, gout, align)
 
 
+GS_KERNELS = ("fwd_pixels", "fwd_packed4", "bwd_prep", "bwd_owner", "bwd_scatter",
+              "zero_table", "to_float<1>")  # csrc/grid_sample.cu's kernels, by name
+
+
+def profiled_kernel_ms(fn, names) -> float:
+    """Device ms of the kernels named ``names`` in one fn() under
+    torch.profiler (the host does not pace it, as it does CUDA events around
+    a loop of small calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(f"{tmp}/trace.json")
+        events = json.loads(Path(f"{tmp}/trace.json").read_text())["traceEvents"]
+    return sum(e["dur"] for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"
+               and any(n in e["name"] for n in names)) / 1e3
+
+
 def grid_sample_phase(calls: list, dev: torch.device) -> dict:
-    """[grid-sample]: the kernels against F.grid_sample (output rtol = atol =
-    RTOL, gradients at the backward limits) on every recorded call, a rerun
-    bitwise equal, the kernels' forward + backward ms over one step's calls
-    beside F.grid_sample's (forward + autograd backward) and the bytes bound
-    (inputs read once, outputs written once)."""
+    """[grid-sample]: the kernels on every recorded call, with the model's
+    layouts: the image gradient bitwise equal to grid_sample_bwd_fixed_plain
+    at the kernel's scale, and on a warp level the owner and scatter routes
+    (each forced) bitwise equal to it, the device escape count 0 and equal
+    to escape_count_plain, the route the one its size picks (owner from
+    OWNER_MIN_PIXELS up); against F.grid_sample (output rtol = atol = RTOL,
+    gradients at the backward limits); a rerun bitwise equal. Printed per
+    call: the forward and backward ms, the route and the backward's kernel
+    launches; over the calls, the kernels' forward + backward ms beside
+    F.grid_sample's (forward + autograd backward) and its plain version's,
+    and the bytes bound (inputs read once, outputs written once)."""
     k = gs.grid_sample_kernels
     gen = torch.Generator(device=dev).manual_seed(11)
-    gouts = [torch.randn(img.shape[:1] + grid.shape[1:3] + img.shape[3:], device=dev,
-                         generator=gen) for _, img, grid, _ in calls]
+
+    def cotangent(img, grid):  # as autograd hands it over: in the image's layout
+        n, c, (ho, wo) = img.shape[0], img.shape[3], grid.shape[1:3]
+        if gs.channels_first(img):
+            return torch.randn((n, c, ho, wo), device=dev, generator=gen).permute(0, 2, 3, 1)
+        return torch.randn((n, ho, wo, c), device=dev, generator=gen)
+
+    gouts = [cotangent(img, grid) for _, img, grid, _ in calls]
     worst_out = worst_grad = 0.0
-    shapes = []
-    was = torch.are_deterministic_algorithms_enabled()
+    shapes, per_call = [], []
     for (site, img, grid, align), gout in zip(calls, gouts):
         out = k.forward(img, grid, align)
+        before = (k.bwd_kernels, k.owner_launches)
         gimg, ggrid = k.backward(img, grid, gout, align)
+        nkernels = k.bwd_kernels - before[0]
+        route = "owner" if k.owner_launches > before[1] else "scatter"
+        scale = k.last_scale.clone()
         out2 = k.forward(img, grid, align)
         gimg2, ggrid2 = k.backward(img, grid, gout, align)
         if not (torch.equal(out, out2) and torch.equal(gimg, gimg2) and torch.equal(ggrid, ggrid2)):
             raise AssertionError(f"grid-sample {site} {tuple(img.shape)}: a rerun differs")
-        torch.use_deterministic_algorithms(False)
-        try:
+        warp_level = grid.shape[1:3] == img.shape[1:3]
+        with plain_check():
             ref, rimg, rgrid = plain_grid_sample(img, grid, align, gout)
-        finally:
-            torch.use_deterministic_algorithms(was)
+            fixed = gs.grid_sample_bwd_fixed_plain(img, grid, gout, scale, align)
+            if warp_level:
+                p = gs.owner_plan(img.shape[0], *img.shape[1:], grid.stride(0) == 0)
+                escapes = gs.escape_count_plain(grid, *img.shape[1:3], p["tw"], p["th"],
+                                                align_corners=align)
+        if not torch.equal(gimg, fixed):
+            raise AssertionError(f"grid-sample {site}: d_img differs from the plain fixed-point "
+                                 f"sum in {int((gimg != fixed).sum())} cells")
+        if warp_level:
+            for forced in ("owner", "scatter"):
+                if not torch.equal(k.backward(img, grid, gout, align, route=forced)[0], gimg):
+                    raise AssertionError(f"grid-sample {site}: the {forced} route differs")
+                if forced == "owner" and (int(k.last_count) != 0 or escapes != 0):
+                    raise AssertionError(f"grid-sample {site}: escape count {int(k.last_count)} "
+                                         f"(plain {escapes}): the owner route stood down")
+            want = "owner" if img.shape[1] * img.shape[2] >= gs.OWNER_MIN_PIXELS else "scatter"
+            if route != want:
+                raise AssertionError(f"grid-sample {site}: the {route} route, not the {want} one")
         worst_out = max(worst_out, check_close(f"grid-sample {site} out", out, ref))
         worst_grad = max(worst_grad, check_grad(f"grid-sample {site} d_img", gimg, rimg),
                          check_grad(f"grid-sample {site} d_grid", ggrid, rgrid))
         shapes.append(f"{site}:{tuple(img.shape)}->{tuple(grid.shape[1:3])}")
+        fwd_ms = cuda_ms(lambda: k.forward(img, grid, align), reps=5)
+        bwd_ms = cuda_ms(lambda: k.backward(img, grid, gout, align), reps=5)
+        per_call.append(dict(site=site, img=list(img.shape), img_strides=list(img.stride()),
+                             grid=list(grid.shape[1:3]), grid_strides=list(grid.stride()),
+                             fwd_ms=round(fwd_ms, 4), bwd_ms=round(bwd_ms, 4), route=route,
+                             bwd_kernels=nkernels))
     fixed_point.check(dev)
+    for row in per_call:
+        log("grid-sample-call", **row)
 
     def kernels():
         for (_, img, grid, align), gout in zip(calls, gouts):
@@ -1788,35 +1870,62 @@ def grid_sample_phase(calls: list, dev: torch.device) -> dict:
         for (_, img, grid, align), gout in zip(calls, gouts):
             plain_grid_sample(img, grid, align, gout)
 
+    def library_on(leaves, gouts):
+        def run():
+            for ((_, _, _, align), (img, grid)), gout in zip(zip(calls, leaves), gouts):
+                out = torch.nn.functional.grid_sample(img.permute(0, 3, 1, 2), grid,
+                                                      align_corners=align)
+                torch.autograd.grad(out, (img, grid), gout.permute(0, 3, 1, 2))
+        return run
+
+    # F.grid_sample on the model's layouts, and on contiguous copies of the
+    # same inputs (the layout an earlier recorder timed it on)
     leaves = [(img.requires_grad_(), grid.requires_grad_()) for _, img, grid, _ in calls]
-
-    def library():
-        for ((_, _, _, align), (img, grid)), gout in zip(zip(calls, leaves), gouts):
-            out = torch.nn.functional.grid_sample(img.permute(0, 3, 1, 2), grid,
-                                                  align_corners=align)
-            torch.autograd.grad(out, (img, grid), gout.permute(0, 3, 1, 2))
-
-    saved = (k.launches, k.bwd_launches)
+    contig = [(img.detach().contiguous().requires_grad_(),
+               grid.detach().contiguous().requires_grad_()) for _, img, grid, _ in calls]
     kernel_ms = cuda_ms(kernels, reps=5)
-    k.launches, k.bwd_launches = saved  # the timing's launches are not the main path's
-    torch.use_deterministic_algorithms(False)
-    try:
+    device_ms = profiled_kernel_ms(kernels, GS_KERNELS)
+    k.reset()  # the phase's launches are not a main path's
+    with plain_check():
         plain_ms = cuda_ms(plain, reps=5)
-        library_ms = cuda_ms(library, reps=5)
-    finally:
-        torch.use_deterministic_algorithms(was)
+        library_ms = cuda_ms(library_on(leaves, gouts), reps=5)
+        library_contig_ms = cuda_ms(library_on(contig, [g.contiguous() for g in gouts]), reps=5)
+    del contig
     for img, grid in leaves:
         img.requires_grad_(False), grid.requires_grad_(False)
-    nbytes = sum(4 * (2 * img.numel() + 2 * grid.numel() + 2 * gout.numel())
-                 + 4 * (img.numel() + grid.numel()) for (_, img, grid, _), gout in
-                 zip(calls, gouts))  # forward: img, grid, out; backward: + gout, gimg, ggrid
+    # forward: img, grid, out; backward: + gout, gimg, ggrid (one per batch
+    # item). A grid shared by the batch (batch stride 0) is read once a pass;
+    # bytes_grid_per_item counts it once per batch item, as for a contiguous
+    # copy of the grid.
+    def nbytes_of(grid_read):
+        return sum(4 * (2 * img.numel() + 2 * grid_read(grid) + 2 * gout.numel())
+                   + 4 * (img.numel() + grid.numel())
+                   for (_, img, grid, _), gout in zip(calls, gouts))
+
+    nbytes = nbytes_of(lambda g: g[:1].numel() if g.stride(0) == 0 else g.numel())
+    nbytes_per_item = nbytes_of(lambda g: g.numel())
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    warp_kernels = max(r["bwd_kernels"] for r in per_call if r["route"] == "owner")
     log("grid-sample", calls=len(calls), shapes=json.dumps(shapes), max_abs_err=worst_out,
-        max_rel_err_grad=worst_grad, rerun_bitwise_equal=True, kernel_ms=round(kernel_ms, 4),
-        plain_ms=round(plain_ms, 4), library_ms=round(library_ms, 4), bytes=nbytes,
-        bound_ms=round(bound_ms, 5))
+        max_rel_err_grad=worst_grad, rerun_bitwise_equal=True, d_img_bitwise_fixed_plain=True,
+        routes_bitwise_equal=True, kernel_ms=round(kernel_ms, 4),
+        kernel_device_ms=round(device_ms, 4),
+        fwd_ms_sum=round(sum(r["fwd_ms"] for r in per_call), 4),
+        bwd_ms_sum=round(sum(r["bwd_ms"] for r in per_call), 4), plain_ms=round(plain_ms, 4),
+        library_ms=round(library_ms, 4), library_contiguous_ms=round(library_contig_ms, 4),
+        bytes=nbytes, bound_ms=round(bound_ms, 5), bytes_grid_per_item=nbytes_per_item,
+        bound_ms_grid_per_item=round(nbytes_per_item / HBM_BYTES_PER_S * 1e3, 5),
+        bwd_kernels_per_warp_call=warp_kernels,
+        bwd_kernels_per_vertex_call=max(r["bwd_kernels"] for r in per_call
+                                        if r["route"] == "scatter"))
+    if warp_kernels > 5:
+        raise AssertionError(f"grid-sample: a warp level's backward launched {warp_kernels} "
+                             f"kernels (at most 5)")
     return dict(max_abs_err=max(worst_out, worst_grad), ms=kernel_ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by="bytes")
+                library_ms=library_ms, bound_ms=bound_ms, bound_by="bytes",
+                bwd_kernels_per_warp_call=warp_kernels, device_ms=device_ms,
+                library_contiguous_ms=library_contig_ms,
+                bound_ms_grid_per_item=nbytes_per_item / HBM_BYTES_PER_S * 1e3)
 
 
 # ---------------------------------------------------------------------------
@@ -2201,11 +2310,24 @@ def main() -> int:
              launches_fwd=sum(f for f, _ in GRID_LAUNCHES.values()),
              launches_bwd=sum(b for _, b in GRID_LAUNCHES.values()),
              launches_by_path=GRID_LAUNCHES,
+             # backward calls of the main paths (bench and the DDP child aside) by
+             # route, the kernels they launched, and the owner-route calls whose
+             # escape count sent them to the scatter route (a device count)
+             bwd_calls_by_route=dict(owner=GRID_ROUTES["owner"],
+                                     scatter=GRID_ROUTES["scatter"]),
+             bwd_kernels=GRID_ROUTES["bwd_kernels"],
+             owner_fallbacks=gs.grid_sample_kernels.fallbacks(),
+             bwd_kernels_per_warp_call=gsk["bwd_kernels_per_warp_call"],
              # ms, plain_ms, library_ms: forward + backward over one training
              # forward's calls (the pyramids' levels and the vertex sampling)
              max_abs_err=gsk["max_abs_err"], ms=gsk["ms"], plain_ms=gsk["plain_ms"],
              bound_ms=gsk["bound_ms"], bound_by=gsk["bound_by"],
-             library_ms=gsk["library_ms"])]}
+             # the bound with the shared warp grid read once per batch item
+             bound_ms_grid_per_item=gsk["bound_ms_grid_per_item"],
+             library_ms=gsk["library_ms"],
+             # the same calls' kernel time on the device (torch.profiler), and
+             # F.grid_sample on contiguous copies of their inputs
+             device_ms=gsk["device_ms"], library_contiguous_ms=gsk["library_contiguous_ms"])]}
     if min(sum(v) for v in GRID_LAUNCHES.values()) < 1:
         raise AssertionError(f"a main path did not launch the grid-sample kernels: {GRID_LAUNCHES}")
     log("done", seconds=round(time.perf_counter() - t_start, 3), ms_per_forward=fwd_ms,

@@ -507,3 +507,145 @@ def test_grid_sample_kernel_matches_plain_and_reruns_bitwise(card, shape):
         cos = float((a * b).sum() / torch.sqrt((a * a).sum() * (b * b).sum()))
         assert err <= BWD_TOL and cos > 0.99999, (name, err, cos)
     fixed_point.check(card)
+
+
+def _gs_case(card, n, h, w, c, layout, shared, jitter, seed):
+    """img [n, h, w, c] (an NHWC view of channels-first planes, or packed
+    NHWC: channels-last, as the model's convolutions give most of its
+    levels), a grid on the pixel centres moved
+    by up to ``jitter`` pixels (expanded over the batch when ``shared``), and
+    gout in the image's layout."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+
+    def nhwc(*shape):
+        if layout == "planes":
+            return torch.randn((shape[0], shape[3], shape[1], shape[2]), device=card,
+                               generator=gen).permute(0, 2, 3, 1)
+        return torch.randn(shape, device=card, generator=gen)
+
+    ys = (2.0 * torch.arange(h, device=card) + 1.0) / h - 1.0
+    xs = (2.0 * torch.arange(w, device=card) + 1.0) / w - 1.0
+    yg, xg = torch.meshgrid(ys, xs, indexing="ij")
+    grid = torch.stack([xg, yg], -1)[None].repeat(1 if shared else n, 1, 1, 1)
+    scale = torch.tensor([2.0 / w, 2.0 / h], device=card)
+    grid = grid + jitter * scale * (torch.rand(grid.shape, device=card, generator=gen) * 2 - 1)
+    if shared:
+        grid = grid.expand(n, -1, -1, -1)
+    return nhwc(n, h, w, c), grid, nhwc(n, h, w, c)
+
+
+def _gs_escapes(gs, img, grid):
+    n, h, w, c = img.shape
+    p = gs.owner_plan(n, h, w, c, grid.stride(0) == 0 or n == 1)
+    return gs.escape_count_plain(grid, h, w, p["tw"], p["th"])
+
+
+def _gs_refs(gs, img, grid, gout):
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(False)  # F.grid_sample's backward, the plain version
+    try:
+        return (gs.grid_sample_plain(img, grid),) + gs.grid_sample_bwd_plain(img, grid, gout)
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("layout", ["planes", "packed"])
+@pytest.mark.parametrize("c", [1, 3, 16, 64, 256])
+def test_grid_sample_image_gradient_is_the_plain_fixed_point_sum(card, c, layout, shared):
+    """The redesigned kernels on a warp level (an output of the image's
+    size, large enough for the owner route): the image gradient equals
+    grid_sample_bwd_fixed_plain bit for bit at the scale the kernel used;
+    the owner and scatter routes, each forced, with the grid gradient fused
+    or not, give the same bits; a rerun too; the device escape count equals
+    escape_count_plain (0: the owner route); outputs and gradients within
+    the limits of F.grid_sample."""
+    from ava256_tpu_torch.ops import fixed_point
+    from ava256_tpu_torch.ops import grid_sample as gs
+
+    h = w = 64
+    img, grid, gout = _gs_case(card, 3, h, w, c, layout, shared, 1.5, seed=c)
+    k = gs.grid_sample_kernels
+    out = k.forward(img, grid)
+    owner = k.owner_launches
+    gimg, ggrid = k.backward(img, grid, gout)
+    scale, count = k.last_scale.clone(), int(k.last_count)
+    assert k.owner_launches == owner + 1
+    assert count == _gs_escapes(gs, img, grid) == 0
+    assert gs.channels_first(out) == gs.channels_first(gimg) == (layout == "planes" or c == 1)
+    assert torch.equal(gimg, gs.grid_sample_bwd_fixed_plain(img, grid, gout, scale))
+    for route in ("owner", "scatter"):
+        for fuse in (True, False):
+            gi, gg = k.backward(img, grid, gout, route=route, fuse_grid=fuse)
+            assert torch.equal(gi, gimg), (route, fuse)
+            assert torch.equal(gg, ggrid) or not fuse or route == "scatter"
+    again = k.backward(img, grid, gout)
+    assert torch.equal(again[0], gimg) and torch.equal(again[1], ggrid)
+    assert torch.equal(k.forward(img, grid), out)
+    ref, ref_img, ref_grid = _gs_refs(gs, img, grid, gout)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=1e-5, atol=1e-5)
+    for name, a, b in (("d_img", gimg, ref_img), ("d_grid", ggrid, ref_grid)):
+        a, b = a.cpu().double(), b.cpu().double()
+        err = float((a - b).abs().max() / b.abs().max())
+        cos = float((a * b).sum() / torch.sqrt((a * a).sum() * (b * b).sum()))
+        assert err <= BWD_TOL and cos > 0.99999, (name, err, cos)
+    fixed_point.check(card)
+
+
+def test_grid_sample_displaced_warp_takes_the_scatter_route(card):
+    """A warp moved past the owner route's window: the device count is the
+    plain count (not 0), the owner kernel stands down, the predicated
+    scatter route behind it computes the image gradient, bit for bit the
+    plain fixed-point sum, and the fallback is counted."""
+    from ava256_tpu_torch.ops import grid_sample as gs
+
+    img, grid, gout = _gs_case(card, 2, 64, 64, 16, "planes", True, 0.5, seed=3)
+    far = grid + 2.0 * (gs.OWNER_RADIUS + 3) / 64
+    k = gs.grid_sample_kernels
+    before = k.fallbacks()
+    gimg, _ = k.backward(img, far, gout)
+    assert int(k.last_count) == _gs_escapes(gs, img, far) > 0
+    assert torch.equal(gimg, gs.grid_sample_bwd_fixed_plain(img, far, gout, k.last_scale))
+    assert k.fallbacks() == before + 1
+
+
+def test_grid_sample_backward_launches(card):
+    """A warp level's backward on the owner route launches five kernels
+    (prep, owner, and the predicated zero, scatter and conversion); a warp
+    level below OWNER_MIN_PIXELS and the vertex sampling take the scatter
+    route, four each; the model's layouts go in without a copy (the
+    forward's output and the image gradient are channels-first like the
+    image)."""
+    from ava256_tpu_torch.ops import grid_sample as gs
+
+    k = gs.grid_sample_kernels
+    img, grid, gout = _gs_case(card, 4, 64, 64, 16, "planes", True, 0.5, seed=4)
+    before = (k.bwd_launches, k.bwd_kernels, k.owner_launches, k.scatter_launches)
+    leaf = img.detach().requires_grad_()
+    out = gs.grid_sample_2d(leaf, grid)
+    out.backward(gout)
+    assert gs.channels_first(leaf.grad)
+    small = _gs_case(card, 4, 16, 16, 16, "planes", True, 0.5, seed=4)
+    k.backward(*small)
+    geo = torch.randn((4, 3, 32, 32), device=card).permute(0, 2, 3, 1)
+    coords = (torch.rand((1, 50, 1, 2), device=card) * 2 - 1).expand(4, -1, -1, -1)
+    k.backward(geo, coords, torch.randn((4, 50, 1, 3), device=card))
+    after = (k.bwd_launches, k.bwd_kernels, k.owner_launches, k.scatter_launches)
+    assert tuple(b - a for a, b in zip(before, after)) == (3, 13, 1, 2)
+
+
+def test_grid_sample_nonfinite_gout_reads_nan(card):
+    """An inf in gout makes the bound, and so the scale, not finite: every
+    addend is skipped and the image gradient reads NaN, as a float sum
+    would; no flag is set (a pixel's weights sum to 1, so a finite scale can
+    never push an addend out of range: the flag is the march's, held by
+    test_bwd_kernel_flag_raises)."""
+    from ava256_tpu_torch.ops import fixed_point
+    from ava256_tpu_torch.ops import grid_sample as gs
+
+    img, grid, gout = _gs_case(card, 2, 24, 24, 3, "planes", True, 0.5, seed=5)
+    gout = gout.clone()
+    gout[0, 3, 4, 1] = float("inf")
+    gimg, _ = gs.grid_sample_kernels.backward(img, grid, gout)
+    assert bool(torch.isnan(gimg).all())
+    fixed_point.check(card)
