@@ -106,9 +106,10 @@ def uvdata(resolution: int) -> Dict[str, np.ndarray]:
 
 
 def build(texsize: int, nprims: int, height: int, width: int, batch: int, device,
-          raymarch_options=None, primsize: int = 8):
+          raymarch_options=None, primsize: int = 8, dtype=None):
     """(model on the CUDA kernels, batch on the device, dataset), as
-    ``__graft_entry__._build`` with its 4 identities and 8 cameras."""
+    ``__graft_entry__._build`` with its 4 identities and 8 cameras; ``dtype``
+    is ``get_autoencoder``'s (None: float32, or ``torch.bfloat16``)."""
     nident, ncams = 4, 8
     dataset = SyntheticDataset(nident=nident, ncams=ncams, height=height, width=width,
                                texsize=texsize)
@@ -116,7 +117,7 @@ def build(texsize: int, nprims: int, height: int, width: int, batch: int, device
     model = get_autoencoder(uvdata(texsize), vertmean=dataset.vertmean,
                             vertstd=dataset.vertstd, ncams=ncams, nident=nident, nprims=nprims,
                             primsize=(primsize,) * 3, raymarch_backend="cuda",
-                            raymarch_options=rm, device=device)
+                            raymarch_options=rm, device=device, dtype=dtype)
     mb = Uploader(device).now(to_model_batch(none_collate([dataset[i] for i in range(batch)])))
     return model, mb, dataset
 

@@ -267,7 +267,7 @@ mvp_march_bwd_kernel(
   const float g0 = g_tiles[gb], g1 = g_tiles[gb + t2], g2 = g_tiles[gb + 2 * t2],
               g3 = g_tiles[gb + 3 * t2];
   // the forward's saturation state of this ray
-  const size_t sb = tile * 5 * t2 + tid;
+  const size_t sb = tile * kStateRows * t2 + tid;
   const float a_s = state[sb + 3 * t2];
   const float wsat = a_s > 0.0f
       ? (g0 * state[sb] + g1 * state[sb + t2] + g2 * state[sb + 2 * t2]) / fmaxf(a_s, 1e-12f)
@@ -409,7 +409,7 @@ size_t mvp_march_bwd_smem_bytes(int tsz, int mh) { return tables_bytes(kWindow, 
 // (4, the template's channels) and inv_warp (3); adds each warp's affine
 // terms into its rows of daff_rows [NT, tsz / 32, mh, 12] (zeroed by the
 // caller). flag gets bit 0 set where an addend could not be added (see
-// fixed_point.cuh). state [NT, 5, T2] is the forward kernel's second output
+// fixed_point.cuh). state [NT, 8, T2] is the forward kernel's second output
 // on the same inputs. counts, when not null, gets two sums
 // added: the samples blended in the march, and the samples chained. probe
 // (or null) selects the counting instance and gets six sums added. Returns

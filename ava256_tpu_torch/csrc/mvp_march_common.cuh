@@ -58,6 +58,10 @@
 namespace mvp {
 
 constexpr unsigned kFull = 0xffffffffu;
+// Rows of the forward's per-ray state [NT, kStateRows, T2], STATE_ROWS in
+// ops/raymarch_cuda.py: the saturation row's sums (rgb, a), the final alpha,
+// then the ReadExtremes of the ray's samples (rgb, alpha, neg).
+constexpr int kStateRows = 8;
 
 struct Scene {
   const int* gid;       // [NT, MH] flat primitive index (n * K + k)
@@ -200,13 +204,37 @@ __device__ __forceinline__ Axis axis_corners(float f, float lim) {
   return a;
 }
 
+// max and min that return NaN when either operand is NaN (fmaxf and fminf
+// drop it): a NaN cell read must not vanish from the extremes.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// Extremes of the template cells one ray's samples read (the corners inside
+// the box): max |rgb|, max |alpha| and min(0, alpha). The backward's
+// fixed-point bound is taken over them, so a cell no sample reads (inf, or
+// a negative density) does not reach it.
+struct ReadExtremes {
+  float rgb = 0.0f, alpha = 0.0f, neg = 0.0f;
+};
+
 // Align-corners trilinear sample of a channels-last [bs, bs, bs, C] box at
 // cell coordinates (fx, fy, fz); corners outside the box read zero (a
 // select on the clamped cell's value, not a branch: the 8 cell loads are
-// independent).
-template <int C>
+// independent). With kRead, the corners read go into *rd (an outside
+// corner's zero changes none of its extremes).
+template <int C, bool kRead = false>
 __device__ __forceinline__ void trilinear(const float* __restrict__ vol, int bs, float fx,
-                                          float fy, float fz, float* s) {
+                                          float fy, float fz, float* s,
+                                          ReadExtremes* rd = nullptr) {
   const float lim = (float)(bs - 1);
   const Axis ax = axis_corners(fx, lim), ay = axis_corners(fy, lim), az = axis_corners(fz, lim);
   float q[8][C];
@@ -220,8 +248,18 @@ __device__ __forceinline__ void trilinear(const float* __restrict__ vol, int bs,
   for (int k = 0; k < 8; ++k) {
     const bool ok = ax.ok[k & 1] && ay.ok[(k >> 1) & 1] && az.ok[k >> 2];
     const float w = (ax.w[k & 1] * ay.w[(k >> 1) & 1]) * az.w[k >> 2];
+    float v[C];
 #pragma unroll
-    for (int c = 0; c < C; ++c) s[c] = s[c] + (ok ? q[k][c] : 0.0f) * w;
+    for (int c = 0; c < C; ++c) {
+      v[c] = ok ? q[k][c] : 0.0f;
+      s[c] = s[c] + v[c] * w;
+    }
+    if constexpr (kRead) {
+      static_assert(C == 4, "the extremes are the RGBA template's");
+      rd->rgb = max_nan(max_nan(max_nan(rd->rgb, fabsf(v[0])), fabsf(v[1])), fabsf(v[2]));
+      rd->alpha = max_nan(rd->alpha, fabsf(v[3]));
+      rd->neg = min_nan(rd->neg, v[3]);
+    }
   }
 }
 
@@ -235,9 +273,11 @@ struct Sample {
 };
 
 // False when the sample is masked out (outside the box or the slab interval).
+// With kRead, the template corners the sample reads go into *rd.
+template <bool kRead = false>
 __device__ __forceinline__ bool eval_sample(const Scene& p, const Ray& ray, const Slab& s,
                                             const float* tb, const float* wb, float half, int r,
-                                            Sample& o) {
+                                            Sample& o, ReadExtremes* rd = nullptr) {
   o.t = ray.tmin + (float)r * p.dt;
   o.y[0] = s.o[0] + o.t * s.d[0];
   o.y[1] = s.o[1] + o.t * s.d[1];
@@ -257,7 +297,7 @@ __device__ __forceinline__ bool eval_sample(const Scene& p, const Ray& ray, cons
 #pragma unroll
     for (int j = 0; j < 3; ++j) o.f2[j] = (sw[j] + 1.0f) * half;
   }
-  trilinear<4>(tb, p.bs, o.f2[0], o.f2[1], o.f2[2], o.sm);
+  trilinear<4, kRead>(tb, p.bs, o.f2[0], o.f2[1], o.f2[2], o.sm, rd);
   return true;
 }
 
@@ -365,10 +405,12 @@ __device__ __forceinline__ void for_each_candidate(const Scene& p, const Ray& ra
 // Sums the samples of step rows [w0, w1) over the candidates, in candidate
 // order, into acc: rgb * a and a = alpha * fade * dt per row. Each thread
 // owns its ray's column, so no barrier is needed. nsamp counts the samples
-// this thread blended.
-template <int W, bool kProbe>
+// this thread blended; with kRead, the template corners they read go into
+// *rd.
+template <int W, bool kProbe, bool kRead = false>
 __device__ __forceinline__ void march_window(const Scene& p, const Ray& ray, const Tables& tb,
-                                             int w0, int w1, unsigned& nsamp, Probe& pr) {
+                                             int w0, int w1, unsigned& nsamp, Probe& pr,
+                                             ReadExtremes* rd = nullptr) {
   const int t2 = blockDim.x, tid = threadIdx.x;
   const size_t box = (size_t)p.bs * p.bs * p.bs;
   const float half = 0.5f * (float)(p.bs - 1);
@@ -381,7 +423,7 @@ __device__ __forceinline__ void march_window(const Scene& p, const Ray& ray, con
     for (int r = lo; r < hi; ++r) {
       Sample sp;
       probe_trip<kProbe>(pr);
-      if (!eval_sample(p, ray, s, tbox, wbox, half, r, sp)) continue;
+      if (!eval_sample<kRead>(p, ray, s, tbox, wbox, half, r, sp, rd)) continue;
       ++nsamp;
       if constexpr (kProbe) ++pr.useful;
       const float a = sp.sm[3] * sp.u;

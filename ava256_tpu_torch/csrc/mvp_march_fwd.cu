@@ -35,7 +35,10 @@
 // kernel can also write each ray's saturation state for the backward
 // kernel, which then does not march the forward again: the row sums
 // (rgb, a) of the row where the density sum crosses 1 (zeros if it never
-// does) and the final alpha.
+// does), the final alpha, and the extremes of the template cells the ray's
+// samples read (max |rgb|, max |alpha|, min(0, alpha)), over which the
+// backward takes the bound of its fixed-point scale: a cell no sample reads
+// cannot reach it.
 //
 // No wgmma (a gather and a trilinear blend, not a matrix product) and no TMA
 // (8 scattered cells per sample, served by L1/L2).
@@ -57,8 +60,10 @@ constexpr int kWindow = 16;    // step rows per window, WINDOW in ops/raymarch_c
 constexpr int kMinBlocks = 3;  // blocks of 256 threads per SM the registers are capped for
 
 // kMaxThreads bounds the block size the instance is compiled for; kProbe
-// adds the lane-use counters (probe[0..3): warp trips, lanes, samples).
-template <int kMaxThreads, bool kProbe>
+// adds the lane-use counters (probe[0..3): warp trips, lanes, samples);
+// kState writes each ray's state, the extremes of the template cells its
+// samples read included (the instance a training step runs).
+template <int kMaxThreads, bool kProbe, bool kState>
 __global__ void __launch_bounds__(kMaxThreads, kMaxThreads <= 256 ? kMinBlocks : 1)
 mvp_march_fwd_kernel(
     Scene p, float* out, float* state, unsigned long long* probe) {
@@ -76,11 +81,12 @@ mvp_march_fwd_kernel(
   // Phase 2: march and composite window by window.
   float cum = 0.0f, rgb0 = 0.0f, rgb1 = 0.0f, rgb2 = 0.0f;
   float4 sat = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // row sums of the saturation row
+  ReadExtremes rd;
   unsigned nsamp = 0;
   Probe pr;
   for (int w0 = rmin; w0 < rmax; w0 += kWindow) {
     const int w1 = min(w0 + kWindow, rmax);
-    march_window<kWindow, kProbe>(p, ray, tb, w0, w1, nsamp, pr);
+    march_window<kWindow, kProbe, kState>(p, ray, tb, w0, w1, nsamp, pr, &rd);
     for (int r = w0; r < w1; ++r) {
       const float4 row = tb.acc[(r - w0) * t2 + tid];
       const float a = row.w;
@@ -101,15 +107,26 @@ mvp_march_fwd_kernel(
   out[ob + t2] = rgb1;
   out[ob + 2 * t2] = rgb2;
   out[ob + 3 * t2] = alpha;
-  if (state) {
-    const size_t sb = tile * 5 * t2 + tid;
+  if constexpr (kState) {
+    const size_t sb = tile * kStateRows * t2 + tid;
     state[sb] = sat.x;
     state[sb + t2] = sat.y;
     state[sb + 2 * t2] = sat.z;
     state[sb + 3 * t2] = sat.w;
     state[sb + 4 * t2] = alpha;
+    state[sb + 5 * t2] = rd.rgb;
+    state[sb + 6 * t2] = rd.alpha;
+    state[sb + 7 * t2] = rd.neg;
   }
   if constexpr (kProbe) probe_drain(pr, probe);
+}
+
+using Kernel = void (*)(Scene, float*, float*, unsigned long long*);
+
+template <bool kProbe, bool kState>
+Kernel pick(int tsz) {
+  return tsz <= 256 ? mvp_march_fwd_kernel<256, kProbe, kState>
+                    : mvp_march_fwd_kernel<1024, kProbe, kState>;
 }
 
 }  // namespace
@@ -124,8 +141,9 @@ const char* cuda_error_string(int err) {
 size_t mvp_march_fwd_smem_bytes(int tsz, int mh) { return tables_bytes(kWindow, tsz, mh); }
 
 // Launches one block per tile on `stream`; returns cudaGetLastError().
-// state [NT, 5, T2] (or null) gets each ray's saturation state. probe (or
-// null) selects the counting instance and gets three sums added.
+// state [NT, 8, T2] (or null) gets each ray's saturation state and the
+// extremes of the template cells its samples read. probe (or null) selects
+// the counting instance and gets three sums added.
 int mvp_march_fwd(const int* gid, const float* scal, const float* ray_o, const float* ray_d,
                   const float* ray_mm, const float* tmpl, const float* warp, float* out,
                   float* state, unsigned long long* probe, int ntiles, int tsz, int mh, int bs,
@@ -133,10 +151,8 @@ int mvp_march_fwd(const int* gid, const float* scal, const float* ray_o, const f
   const Scene p = make_scene(gid, scal, ray_o, ray_d, ray_mm, tmpl, warp, mh, bs, nbuf, dt,
                              fadescale, fadeexp);
   const size_t smem = tables_bytes(kWindow, tsz, mh);
-  auto* kernel = probe ? (tsz <= 256 ? mvp_march_fwd_kernel<256, true>
-                                     : mvp_march_fwd_kernel<1024, true>)
-                       : (tsz <= 256 ? mvp_march_fwd_kernel<256, false>
-                                     : mvp_march_fwd_kernel<1024, false>);
+  const Kernel kernel = probe ? (state ? pick<true, true>(tsz) : pick<true, false>(tsz))
+                              : (state ? pick<false, true>(tsz) : pick<false, false>(tsz));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

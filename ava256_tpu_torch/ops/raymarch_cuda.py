@@ -19,16 +19,18 @@ Port of ``ava256_tpu.ops.raymarch_pallas``:
    saturation (summed-within-step). On a CUDA tensor this launches the
    kernel; on a CPU tensor it runs the plain PyTorch version,
    ``march_tiles_plain``, which repeats the kernel's arithmetic.
-   When asked, the march also returns each ray's saturation state
-   [NT, 5, T2]: the row sums (rgb, a) of the step row where the density sum
-   crosses 1 (zeros if it never does) and the final alpha.
+   When asked, the march also returns each ray's state [NT, 8, T2]: the row
+   sums (rgb, a) of the step row where the density sum crosses 1 (zeros if
+   it never does), the final alpha, and the extremes of the template cells
+   the ray's samples read (max |rgb|, max |alpha|, min(0, alpha)).
 3. Its backward (``march_tiles_bwd``): from the cotangent of the composited
    tiles and the forward's saturation state, the gradients of the template
    and warp boxes and of every primitive's affine, summed over the tiles.
    Kernel on CUDA tensors, ``march_tiles_bwd_plain`` on CPU tensors. Without
    a state it runs the forward march once more to get it. The kernel's sums
    are integer sums at a per-call fixed-point scale (``fixed_point_bounds``,
-   ``ops/fixed_point.py``): it gives the same bits on every run.
+   ``ops/fixed_point.py``), bounded over the template cells the forward's
+   samples read: it gives the same bits on every run.
 4. The op (``mvp_raymarch_cuda``): one ``torch.autograd.Function`` that culls
    on the values, marches (saving the state when a gradient is needed), and
    in the backward marches with the forward's saved candidates and state;
@@ -50,7 +52,9 @@ MARCH_FWD_LIB = CudaLib("mvp_march_fwd.cu")
 MARCH_BWD_LIB = CudaLib("mvp_march_bwd.cu")
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 WINDOW = 16  # step rows marched per window, as kWindow in the kernels
-STATE_ROWS = 5  # the forward's per-ray saturation state: C_s (rgb), a_s, alpha
+# the forward's per-ray state: C_s (rgb), a_s, alpha, then the extremes of the
+# template cells read: max |rgb|, max |alpha|, min(0, alpha)
+STATE_ROWS = 8
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -254,15 +258,17 @@ def _pow_abs(x: torch.Tensor, p: float) -> torch.Tensor:
     return torch.abs(x) ** p
 
 
-def _trilinear_plain(vol: torch.Tensor, bs: int, fx, fy, fz):
+def _trilinear_plain(vol: torch.Tensor, bs: int, fx, fy, fz, extremes: bool = False):
     """vol [NT, bs^3, C] (one box per tile), f* [NT, R] cell coordinates ->
     [NT, R, C]; corners outside the box read zero (a select, so that what
     lies in the clamped cell does not matter). Same sum order as the kernel's
-    trilinear()."""
+    trilinear(). With ``extremes`` (RGBA boxes) also the kernel's
+    ReadExtremes of each sample's corners, [3, NT, R]: max |rgb|, max
+    |alpha|, min(0, alpha), NaN where a corner read is NaN."""
     x0, y0, z0 = torch.floor(fx), torch.floor(fy), torch.floor(fz)
     wx1, wy1, wz1 = fx - x0, fy - y0, fz - z0
     c = vol.shape[-1]
-    out = 0.0
+    out, corners = 0.0, []
     for dz in (0, 1):
         for dy in (0, 1):
             for dx in (0, 1):
@@ -274,8 +280,15 @@ def _trilinear_plain(vol: torch.Tensor, bs: int, fx, fy, fz):
                 vals = torch.gather(vol, 1, idx[..., None].expand(-1, -1, c))
                 wgt = ((wx1 if dx else 1.0 - wx1) * (wy1 if dy else 1.0 - wy1)
                        * (wz1 if dz else 1.0 - wz1))
-                out = out + torch.where(ok[..., None], vals, 0.0) * wgt[..., None]
-    return out
+                v = torch.where(ok[..., None], vals, 0.0)
+                out = out + v * wgt[..., None]
+                corners.append(v)
+    if not extremes:
+        return out
+    v = torch.stack(corners)  # [8, NT, R, 4]; amax and amin keep a NaN
+    top = v.abs().amax(dim=0)
+    return out, torch.stack([top[..., :3].amax(dim=-1), top[..., 3],
+                             torch.clamp(v[..., 3].amin(dim=0), max=0.0)])
 
 
 def _slab_plain(s: torch.Tensor, o, d, tmin, tmax):
@@ -340,8 +353,12 @@ def ray_candidates_plain(scal, t_o, t_d, t_mm, dt, nbuf):
 class _TileMarch:
     """The tiles' inputs unpacked once, and the kernels' shared steps as
     PyTorch ops: one candidate's samples over a window of rows
-    (``eval_sample`` in csrc/mvp_march_common.cuh) and a window's row sums
-    (``march_window``)."""
+    (``eval_sample`` in csrc/mvp_march_common.cuh), a window's row sums
+    (``march_window``) and a tile's early exit (``tile_done``). The kernels'
+    block marches its tile's windows from the tile's own first row; here the
+    rows are marched for all tiles at once, in windows from the first row of
+    any tile, and a tile stops taking rows where its own window ends with
+    every ray done (``exits``)."""
 
     def __init__(self, gid, scal, t_o, t_d, t_mm, template, warp, dt, fadescale, fadeexp, nbuf):
         self.gid, self.scal = gid.long(), scal
@@ -362,6 +379,9 @@ class _TileMarch:
         self.empty = not bool(has.any())
         self.rmin = 0 if self.empty else int(self.r0[has].min())
         self.rmax = 0 if self.empty else int(self.r1[has].max())
+        # each tile's rows [first, last), the span of its windows
+        self.first = torch.where(has, self.r0, nbuf).amin(dim=1)
+        self.last = torch.where(has, self.r1, 0).amax(dim=1)
 
     def windows(self):
         for w0 in range(self.rmin, self.rmax, WINDOW):
@@ -372,11 +392,13 @@ class _TileMarch:
         meets = ((self.r0 < w1) & (self.r1 > w0) & active[:, None]).any(dim=0)
         return torch.nonzero(meets).flatten().tolist()
 
-    def samples(self, c, w0, w1):
+    def samples(self, c, w0, w1, extremes: bool = False):
         """Candidate slot c at rows [w0, w1): a dict of [NT, T2, R] tensors
         (t, y, fade, mask, u), the cell coordinates f (of y) and f2 (where the
         template is read), each [NT, T2 * R], and the template sample smp
-        [NT, T2, R, 4]."""
+        [NT, T2, R, 4]; with ``extremes`` also ``read`` [3, NT, T2, R], the
+        extremes of the template corners each sample reads (0 where the
+        mask is off: the kernels take no sample there)."""
         rows = torch.arange(w0, w1, device=self.dev, dtype=self.dtype)
         oy, dy, tin, tout, seg = _slab_plain(self.scal[:, c], self.o, self.d, self.tmin,
                                              self.tmax)
@@ -396,31 +418,50 @@ class _TileMarch:
         if self.wrp is not None:
             sw = _trilinear_plain(self.wrp[self.gid[:, c]], self.bs, *f)
             f2 = [(sw[..., j] + 1.0) * self.half for j in range(3)]
-        smp = _trilinear_plain(self.tpl[self.gid[:, c]], self.bs, *f2).reshape(
-            self.ntiles, self.t2, -1, 4)
+        smp = _trilinear_plain(self.tpl[self.gid[:, c]], self.bs, *f2, extremes=extremes)
+        sp = dict(t=t, y=y, fade=fade, mask=mask, u=u, f=f, f2=f2)
+        if extremes:
+            smp, read = smp
+            sp["read"] = torch.where(mask, read.reshape((3,) + mask.shape), 0.0)
         # the kernels take no sample where the mask is off: nothing read there counts
-        smp = torch.where(mask[..., None], smp, 0.0)
-        return dict(t=t, y=y, fade=fade, mask=mask, u=u, f=f, f2=f2, smp=smp)
+        sp["smp"] = torch.where(mask[..., None], smp.reshape(self.ntiles, self.t2, -1, 4), 0.0)
+        return sp
 
-    def window_sums(self, w0, w1, active, counts=None):
-        """[4, NT, T2, R]: rgb * a and a per row, summed over the candidates
-        in candidate order."""
-        acc = torch.zeros((4, self.ntiles, self.t2, w1 - w0), dtype=self.dtype, device=self.dev)
+    def window_sums(self, w0, w1, active, taken: bool = False, read: bool = False):
+        """(acc, taken, read) of rows [w0, w1): acc [4, NT, T2, R], rgb * a
+        and a per row, summed over the candidates in candidate order; with
+        ``taken``, [NT, R] the samples of each tile's rows; with ``read``,
+        [3, NT, T2, R] the extremes of the template corners each ray's samples
+        of a row read (max |rgb|, max |alpha|, min(0, alpha)). The caller
+        counts a row of a tile only where the tile still marches it."""
+        r = w1 - w0
+        acc = torch.zeros((4, self.ntiles, self.t2, r), dtype=self.dtype, device=self.dev)
+        n = torch.zeros((self.ntiles, r), dtype=torch.int64, device=self.dev) if taken else None
+        ext = torch.zeros((3, self.ntiles, self.t2, r), dtype=self.dtype,
+                          device=self.dev) if read else None
         for c in self.meeting(w0, w1, active):
-            sp = self.samples(c, w0, w1)
-            if counts is not None:
-                live = (sp["mask"] & active[:, None, None]).sum()
-                counts["samples"] = counts.get("samples", 0) + live
+            sp = self.samples(c, w0, w1, extremes=read)
+            if taken:
+                n += sp["mask"].sum(dim=1)
+            if read:
+                e = sp["read"]
+                ext[0] = torch.maximum(ext[0], e[0])
+                ext[1] = torch.maximum(ext[1], e[1])
+                ext[2] = torch.minimum(ext[2], e[2])
             a = sp["smp"][..., 3] * sp["u"]
             for j in range(3):
                 acc[j] = acc[j] + sp["smp"][..., j] * a
             acc[3] = acc[3] + a
-        return acc
+        return acc, n, ext
 
-    def done(self, cum, w1):
-        """Rays that have saturated or can take no further sample."""
-        return ((cum >= 1.0) | ~(self.tmin < self.tmax)
-                | (self.tmin + float(w1) * self.dt >= self.tmax))
+    def exits(self, cum, row: int):
+        """Tiles that stop after row ``row``: one of their windows ends
+        there and every ray has saturated or can take no further sample
+        (``tile_done``)."""
+        end = ((row + 1 - self.first) % WINDOW == 0) | (row + 1 == self.last)
+        done = ((cum >= 1.0) | ~(self.tmin < self.tmax)
+                | (self.tmin + float(row + 1) * self.dt >= self.tmax))
+        return end & done.all(dim=1)
 
 
 def march_tiles_plain(gid, scal, t_o, t_d, t_mm, template, warp, dt, fadescale, fadeexp,
@@ -430,33 +471,44 @@ def march_tiles_plain(gid, scal, t_o, t_d, t_mm, template, warp, dt, fadescale, 
     and composite, looping over windows of step rows and over candidates, and
     vectorized over tiles x rays x the rows of a window. Arguments as for
     ``march_tiles``; returns [NT, 4, T2], with ``with_state`` also the
-    saturation state [NT, 5, T2]. ``counts``, when given, gets ``"samples"``:
+    rays' state [NT, 8, T2]. ``counts``, when given, gets ``"samples"``:
     the (ray, row, candidate) samples the kernel evaluates on these inputs
     (the tiles' early exit at a window's end included)."""
     m = _TileMarch(gid, scal, t_o, t_d, t_mm, template, warp, dt, fadescale, fadeexp, nbuf)
     cum = torch.zeros_like(m.tmin)
     rgb = [torch.zeros_like(m.tmin) for _ in range(3)]
     sat = [torch.zeros_like(m.tmin) for _ in range(4)]  # row sums of the saturation row
+    read = [torch.zeros_like(m.tmin) for _ in range(3)]  # extremes of the cells read
     active = torch.ones(m.ntiles, dtype=torch.bool, device=m.dev)
     for w0, w1 in m.windows():
-        acc = m.window_sums(w0, w1, active, counts)
+        acc, taken, seen = m.window_sums(w0, w1, active, taken=counts is not None,
+                                         read=with_state)
+        marched = []
         for r in range(w1 - w0):
+            marched.append(active)
             a = acc[3][..., r]
             nw = cum + a
             scale = (torch.clamp(nw, max=1.0) - torch.clamp(cum, max=1.0)) / torch.clamp(
                 a, min=1e-12)
             keep = active[:, None]
             rgb = [torch.where(keep, rgb[j] + scale * acc[j][..., r], rgb[j]) for j in range(3)]
+            if counts is not None:
+                counts["samples"] = counts.get("samples", 0) + taken[:, r][active].sum()
             if with_state:
                 crosses = keep & (cum < 1.0) & (nw >= 1.0)
                 sat = [torch.where(crosses, acc[j][..., r], sat[j]) for j in range(4)]
             cum = torch.where(keep, nw, cum)
-        active = active & ~m.done(cum, w1).all(dim=1)
+            active = active & ~m.exits(cum, w0 + r)
+        if with_state:  # the rows each tile marched
+            seen = torch.where(torch.stack(marched, dim=-1)[None, :, None], seen, 0.0)
+            read = [torch.maximum(read[0], seen[0].amax(dim=-1)),
+                    torch.maximum(read[1], seen[1].amax(dim=-1)),
+                    torch.minimum(read[2], seen[2].amin(dim=-1))]
         if not bool(active.any()):
             break
     alpha = torch.clamp(cum, max=1.0)
     out = torch.stack(rgb + [alpha], dim=1)
-    return (out, torch.stack(sat + [alpha], dim=1)) if with_state else out
+    return (out, torch.stack(sat + [alpha] + read, dim=1)) if with_state else out
 
 
 def _trilinear_bwd_plain(vol, dvol, gid_c, bs, fx, fy, fz, dS):
@@ -496,7 +548,7 @@ def march_tiles_bwd_plain(gid, scal, t_o, t_d, t_mm, g_tiles, template, warp, dt
                           fadeexp, nbuf, counts: Optional[Dict[str, torch.Tensor]] = None,
                           state: Optional[torch.Tensor] = None):
     """Plain PyTorch version of the backward kernel (csrc/mvp_march_bwd.cu):
-    from the forward's saturation state (``state`` [NT, 5, T2]; when None, the
+    from the forward's saturation state (``state`` [NT, 8, T2]; when None, the
     forward march is run once more for it), per window the march's row sums
     and the rows' cotangents cscale_r and dL/da_r, then per candidate the
     samples' cotangents chained into the boxes and the affine. Arguments as
@@ -526,9 +578,12 @@ def march_tiles_bwd_plain(gid, scal, t_o, t_d, t_mm, g_tiles, template, warp, dt
     cum = torch.zeros_like(m.tmin)
     active = torch.ones(m.ntiles, dtype=torch.bool, device=m.dev)
     for w0, w1 in m.windows():
-        acc = m.window_sums(w0, w1, active, fwd_counts)
-        csc, da = [], []
+        acc, taken, _ = m.window_sums(w0, w1, active, taken=fwd_counts is not None)
+        csc, da, marched = [], [], []
         for r in range(w1 - w0):
+            marched.append(active)
+            if fwd_counts is not None:
+                fwd_counts["samples"] = fwd_counts.get("samples", 0) + taken[:, r][active].sum()
             a = acc[3][..., r]
             nw = cum + a
             am = torch.clamp(a, min=1e-12)
@@ -538,10 +593,11 @@ def march_tiles_bwd_plain(gid, scal, t_o, t_d, t_mm, g_tiles, template, warp, dt
             csc.append(cs_r)
             da.append((rev - cs_r * w) + ga_qf)
             cum = nw
-        live_tile = active[:, None, None].to(m.dtype)
-        csc = torch.stack(csc, dim=-1) * live_tile  # [NT, T2, R]
-        da = torch.stack(da, dim=-1) * live_tile
-        for c in m.meeting(w0, w1, active):
+            active = active & ~m.exits(cum, w0 + r)
+        live_rows = torch.stack(marched, dim=-1)[:, None, :].to(m.dtype)  # [NT, 1, R]
+        csc = torch.stack(csc, dim=-1) * live_rows  # [NT, T2, R]
+        da = torch.stack(da, dim=-1) * live_rows
+        for c in m.meeting(w0, w1, marched[0]):
             sp = m.samples(c, w0, w1)
             live = sp["mask"] & ((csc != 0.0) | (da != 0.0))
             if counts is not None:
@@ -574,7 +630,6 @@ def march_tiles_bwd_plain(gid, scal, t_o, t_d, t_mm, g_tiles, template, warp, dt
             terms = [torch.sum(pos[i] * dyv[j], dim=(1, 2)) for i in range(3) for j in range(3)]
             terms += [torch.sum(dyv[j], dim=(1, 2)) for j in range(3)]
             d_aff.index_add_(0, gc, torch.stack(terms, dim=-1))
-        active = active & ~m.done(cum, w1).all(dim=1)
         if not bool(active.any()):
             break
     if counts is not None:
@@ -677,11 +732,21 @@ class _MarchKernel:
         return (out, state) if with_state else out
 
 
-def fixed_point_bounds(g_tiles, scal, template, warp, dt, fadescale, fadeexp, nbuf):
+def fixed_point_bounds(g_tiles, scal, template, warp, dt, fadescale, fadeexp, nbuf,
+                       state: Optional[torch.Tensor] = None):
     """Sound bounds of the sum of |addends| each channel group of the
     backward kernel's box tables receives, [5] float64 on the rays' device:
     the template's four channels, then the warp (0 without one), and the
     smallest density, whose sign the bounds assume (>= 0).
+
+    R, A and the smallest density are taken over the template cells the
+    march reads: from ``state``, the forward's (rows 5-7: each ray's
+    extremes over the corners inside the box of the samples it took), or,
+    without one, over the whole template. The backward marches the same
+    windows, candidates and samples as the forward and reads no other cell
+    (its row sums and its chain read the same corners), so the bound over
+    the cells read is as sound as the one over the whole template, and a
+    cell no sample reads (inf, or a negative density) cannot reach it.
 
     Per ray, with densities >= 0: the samples' cscale * alpha * u sum to at
     most 1 (the composite's weights) and cscale <= 1; |w|, |wsat| and
@@ -698,9 +763,13 @@ def fixed_point_bounds(g_tiles, scal, template, warp, dt, fadescale, fadeexp, nb
     h = 0.5 * (bs - 1)
     g = g_tiles.double().abs()  # [NT, 4, T2]
     gsum = g[:, 0] + g[:, 1] + g[:, 2]  # [NT, T2]
-    lo, hi = torch.aminmax(template.reshape(-1, 4), dim=0)
-    top = torch.maximum(lo.abs(), hi.abs()).double()
-    rgb_max, alpha_max = top[:3].amax(), top[3]
+    if state is None:
+        lo, hi = torch.aminmax(template.reshape(-1, 4), dim=0)
+        top = torch.maximum(lo.abs(), hi.abs()).double()
+        rgb_max, alpha_max, alpha_min = top[:3].amax(), top[3], lo[3]
+    else:
+        rgb_max, alpha_max = state[:, 5].double().amax(), state[:, 6].double().amax()
+        alpha_min = state[:, 7].amin()
     # samples a ray can take in each candidate, and their u summed per tile
     A = scal[..., :9].double().reshape(scal.shape[0], scal.shape[1], 3, 3)
     frob = (A * A).sum(dim=(-2, -1))
@@ -718,7 +787,19 @@ def fixed_point_bounds(g_tiles, scal, template, warp, dt, fadescale, fadeexp, nb
     else:
         warp_bound = (2.0 * h * (rgb_max * gsum + alpha_max * s3)).sum()
     bounds = torch.stack([g[:, 0].sum(), g[:, 1].sum(), g[:, 2].sum(), s3.sum(), warp_bound])
-    return bounds, lo[3]
+    return bounds, alpha_min
+
+
+def fixed_point_scales(g_tiles, scal, template, warp, state, dt, fadescale, fadeexp, nbuf):
+    """The backward kernel's per-call scales [5] (the template's channels,
+    then the warp's), from ``fixed_point_bounds`` over the cells the forward
+    read (``state``); sets ``NEGATIVE_DENSITY`` in the device's fixed-point
+    flag where one of them held a negative density. No host sync."""
+    bounds, alpha_min = fixed_point_bounds(g_tiles, scal, template, warp, dt, fadescale,
+                                           fadeexp, nbuf, state=state)
+    flag = fixed_point.flag(g_tiles.device)
+    flag.bitwise_or_((alpha_min < 0).to(torch.int32) * fixed_point.NEGATIVE_DENSITY)
+    return fixed_point.scale_for(bounds)
 
 
 class _MarchBwdKernel:
@@ -762,11 +843,9 @@ class _MarchBwdKernel:
         if not given:
             _, state = self.forward(gid, scal, t_o, t_d, t_mm, template, warp, dt, fadescale,
                                     fadeexp, nbuf, with_state=True)
-        bounds, alpha_min = fixed_point_bounds(g_tiles, scal, template, warp, dt, fadescale,
-                                               fadeexp, nbuf)
+        scales = fixed_point_scales(g_tiles, scal, template, warp, state, dt, fadescale, fadeexp,
+                                    nbuf)
         flag = fixed_point.flag(dev)
-        flag.bitwise_or_((alpha_min < 0).to(torch.int32) * fixed_point.NEGATIVE_DENSITY)
-        scales = fixed_point.scale_for(bounds)
         inv = 1.0 / scales
         inv_tmpl = inv[0:4].contiguous()
         inv_warp = inv[4:5].expand(3).contiguous()
@@ -819,8 +898,8 @@ def march_tiles(gid, scal, t_o, t_d, t_mm, template, warp, dt, fadescale, fadeex
     """March and composite every tile. gid [NT, MH] int32 flat box index,
     scal [NT, MH, 12] candidate affines, t_o/t_d [NT, 3, T2], t_mm [NT, 2, T2],
     template [N*K, bs, bs, bs, 4], warp [N*K, bs, bs, bs, 3] or None.
-    Returns [NT, 4, T2] RGBA, with ``with_state`` also the rays' saturation
-    state [NT, 5, T2] for ``march_tiles_bwd``. CUDA tensors go to the kernel,
+    Returns [NT, 4, T2] RGBA, with ``with_state`` also the rays' state
+    [NT, 8, T2] for ``march_tiles_bwd``. CUDA tensors go to the kernel,
     CPU tensors to its plain version."""
     return _route(t_o, march_tiles_kernel, march_tiles_plain)(
         gid, scal, t_o, t_d, t_mm, template, warp, dt, fadescale, fadeexp, nbuf,

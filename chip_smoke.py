@@ -45,6 +45,13 @@ Phases (each prints one line; any failure exits non-zero):
    backward ms over those calls beside F.grid_sample's and its plain
    version's, and the bytes bound; the traced steps of the training phases
    print the grid-sample kernels' count and ms;
+5c. ``[traceprof]``: ``python -m ava256_tpu_torch.traceprof``'s traced
+   step on that model (the warm-up step, a normal one, then one more traced
+   with Python stacks and a scope per module) and its aggregation: at least
+   95 % of the step's device time on a source line of the package, one
+   launch of each march kernel a step; printed: that share, the 10 largest
+   source lines and modules, and the modules and lines that own the
+   conv-gradient kernels (``*wgrad*``, ``*dgrad*``);
 6. the training entry point, ``cli.train.main`` (what ``python -m
    ava256_tpu_torch.cli.train`` runs) on configs/config-synthetic-flagship.yaml
    with a topology .obj written into a temporary ``assets=`` directory: two
@@ -107,7 +114,7 @@ Phases (each prints one line; any failure exits non-zero):
    cull, both kernels at bs 2, the table scale 128 and motion_size 512):
    ``[ddp-train]`` runs ``cli.train`` in this process for 3 steps, then
    ``python -m torch.distributed.run --standalone --nproc_per_node 1
-   chip_smoke.py --ddp-child OUT -- ARGS`` twice (``mesh.multihost=true``: 2
+   chip_smoke.py --train-child OUT -- ARGS`` twice (``mesh.multihost=true``: 2
    steps, then a resume to 3); the launched process runs ``cli.train.main``
    (what ``-m ava256_tpu_torch.cli.train`` runs) with its steps watched and
    writes what it saw to OUT. Checked: NCCL with a world of 1, the group
@@ -133,6 +140,10 @@ Phases (each prints one line; any failure exits non-zero):
    BWD_PLAIN_STRIDE-th tile, against the kernel on the same tiles, both
    timed there too. The bound counts one evaluation of every sample the
    plain forward counted plus the chain of every chained sample.
+8b. ``[fwdprof]``: ``python -m ava256_tpu_torch.fwdprof``'s split of the
+   forward march op on kbench's shell scene (cull, the template table, the
+   affines, the kernel with and without the state, untile, the whole op, each
+   timed alone); the parts composed must give the op's output bit for bit.
 
 9. ``[xla-march]``: the compacted marcher (``ops/raymarch_xla.py``, plain
    PyTorch: no kernel of its own) at full width on kbench's shell scene (4 x
@@ -153,6 +164,13 @@ Phases (each prints one line; any failure exits non-zero):
    checkpoint every 4 steps, and a second run from that mid-run checkpoint to
    step 8: the two step-8 checkpoints and the re-logged losses bitwise
    equal;
+   ``[long-recipe]``: ``python -m ava256_tpu_torch.flagship_runs`` with
+   the reference's round-5 recipe at a small horizon (bf16, 12 steps, the
+   StepLR bump at 8, a checkpoint every 4, SIGKILL in step 11, the resume
+   from the checkpoint after step 8; each ``cli.train`` process this
+   script's ``--train-child``): the run's exit code, steps 9 and 10 re-logged
+   with equal losses, lr 2.8e-4 from the bump, one launch of each kernel a
+   step in the resumed process;
 11. ``[bench]``: ``python -m ava256_tpu_torch.bench`` at its defaults in a
    child process, its JSON line printed under the tag (bench.py's keys,
    finite values, one launch of each kernel per train step), then
@@ -188,6 +206,7 @@ power limit; the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import logging
 import math
@@ -205,7 +224,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ava256_tpu_torch import kbench, native, parallel
+from ava256_tpu_torch import flagship_runs, fwdprof, kbench, native, parallel, traceprof
 from ava256_tpu_torch.cli import eval as cli_eval
 from ava256_tpu_torch.cli import generate_id_cond as cli_idc
 from ava256_tpu_torch.cli import render as cli_render
@@ -1205,6 +1224,127 @@ def resume_exact(dev: torch.device, work: Path):
     return launches
 
 
+TRACEPROF_SHARE = 0.95  # of a traced step's device time on a source line of the package
+
+
+def traceprof_phase(model, ds, batch, dev: torch.device):
+    """[traceprof]: ``python -m ava256_tpu_torch.traceprof``'s traced step
+    (``traceprof.trace_step``: the warm-up step, a normal one, then one
+    more traced with Python stacks and the model's module scopes) on the
+    flagship model of [train], and its aggregation: the device time on a
+    source line must be at least TRACEPROF_SHARE of the step's. Printed: that
+    share, the 10 largest source lines and modules, and the modules and lines
+    behind the conv-gradient kernels (``*wgrad*``, ``*dgrad*``)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_march_launches()  # this path starts here
+        path = traceprof.trace_step(model, batch, ds, tmp, dev)
+        launches = march_launches()  # this path ends here
+        GRID_LAUNCHES["traceprof"] = grid_launches()
+        traced_s = time.perf_counter() - t0
+        trace_mb = path.stat().st_size / 2**20
+        rep = traceprof.aggregate(path, 10, nvidia_smi(), out=io.StringIO())
+    if launches != (3, 3, 3) or rep["attributed_share"] < TRACEPROF_SHARE:
+        raise AssertionError(f"traceprof: launches {launches}, device time on a source line "
+                             f"{rep['attributed_share']:.4f} (at least {TRACEPROF_SHARE})")
+    log("traceprof", total_device_ms=round(rep.get("total_device_s", math.nan) * 1e3, 3),
+        attributed_share=round(rep["attributed_share"], 5),
+        top_lines=json.dumps(rep["top_lines"]), top_modules=json.dumps(rep["top_modules"]),
+        conv_grad_kernels=json.dumps(rep["conv_grad_kernels"]),
+        trace_mb=round(trace_mb, 1), traced_s=round(traced_s, 3),
+        seconds=round(time.perf_counter() - t0, 3))
+    return launches
+
+
+def fwdprof_phase(dev: torch.device) -> tuple:
+    """[fwdprof]: ``python -m ava256_tpu_torch.fwdprof``'s split of the
+    forward march op on kbench's shell scene (cull, the template table,
+    the affines, the kernel with and without the state, untile, the whole
+    op); the parts composed must give the op's output bit for bit."""
+    t0 = time.perf_counter()
+    reset_march_launches()  # this path starts here
+    rep = fwdprof.profile(dev)
+    launches = march_launches()  # this path ends here
+    if not rep["bitwise_equal"] or launches[0] < 1:
+        raise AssertionError(f"fwdprof: composed parts equal to the op: "
+                             f"{rep['bitwise_equal']}, forward launches {launches[0]}")
+    log("fwdprof", **{k[:-2] + "_ms" if k.endswith("_s") else k:
+                      round(v * 1e3, 4) if k.endswith("_s") else v for k, v in rep.items()},
+        seconds=round(time.perf_counter() - t0, 3))
+    return launches
+
+
+# [long-recipe]: the reference's round-5 recipe at a small horizon
+LONG = dict(steps=12, bump=8, every=4, kill=10)
+ITERATION = re.compile(r"Iteration (\d+) loss = (\S+), .* lr = (\S+), time")
+
+
+def long_recipe(dev: torch.device, work: Path):
+    """[long-recipe]: ``python -m ava256_tpu_torch.flagship_runs`` with the
+    reference's round-5 options at a small horizon (``--arms bf16-resume
+    --steps 12 --kill-after 10 --checkpoint-every 4
+    train.lr_scheduler_iter=8``): a bf16 run across the StepLR bump,
+    SIGKILLed in step 11 and resumed from the checkpoint saved after step 8.
+    Each ``cli.train`` process is this script's ``--train-child``, so the
+    resumed one's steps are watched (the killed one writes nothing). Checked:
+    the run's exit code, steps 9 and 10 logged again with the same losses,
+    lr 2.0e-4 before the bump and 2.8e-4 from it, the resumed process at
+    step 9 with one launch of each kernel a step. The flagship's UV maps come
+    from the earlier phases' cache."""
+    out = work / "long"
+    shutil.copytree(os.environ["AVA256_CACHE_DIR"], out / "cache")
+    children, start = [], flagship_runs._start
+
+    def watched_start(cmd, log_path, env):
+        child = out / f"child_{len(children)}.json"
+        children.append(child)
+        args = cmd[cmd.index("ava256_tpu_torch.cli.train") + 1:]
+        return start([cmd[0], os.path.abspath(__file__), "--train-child", str(child), "--"]
+                     + args, log_path, env)
+
+    argv = [str(out), "--device", dev.type, "--arms", "bf16-resume",
+            "--steps", str(LONG["steps"]), "--kill-after", str(LONG["kill"]),
+            "--checkpoint-every", str(LONG["every"]),
+            f"train.lr_scheduler_iter={LONG['bump']}"]
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    flagship_runs._start = watched_start
+    try:
+        with contextlib.redirect_stdout(printed):
+            rc_runs = flagship_runs.main(argv)
+    finally:
+        flagship_runs._start = start
+    seconds = time.perf_counter() - t0
+    lines = ITERATION.findall((out / "bf16-resume" / "train.log").read_text(errors="replace"))
+    first, again = {}, []
+    for it, loss, lr in lines:
+        if it in first:
+            again.append((int(it), loss == first[it][0]))
+        else:
+            first[it] = (loss, lr)
+    resumed = json.loads(children[-1].read_text()) if children[-1].is_file() else {}
+    mid = LONG["kill"] - LONG["kill"] % LONG["every"]  # the last checkpoint's step
+    lrs = {lr for it, (_, lr) in first.items() if int(it) >= LONG["bump"]}
+    before = {lr for it, (_, lr) in first.items() if int(it) < LONG["bump"]}
+    if rc_runs != 0 or len(children) != 2 or sorted(int(i) for i in first) != list(
+            range(LONG["steps"])) or [i for i, _ in again] != list(range(mid + 1, LONG["kill"] + 1)):
+        raise AssertionError(f"long-recipe: rc {rc_runs}, {len(children)} processes, steps "
+                             f"{sorted(first)}, again {again}:\n{printed.getvalue()}")
+    if not all(same for _, same in again) or lrs != {"2.80e-04"} or before != {"2.00e-04"}:
+        raise AssertionError(f"long-recipe: re-logged {again}, lr {before} then {lrs}")
+    if resumed.get("resumed_at") != [mid + 1] or resumed.get("step") != LONG["steps"] or \
+            resumed["step_launches"] != [[1, 1, 1]] * (LONG["steps"] - mid - 1) or \
+            not all(np.isfinite(v) for v in resumed["losses"]):
+        raise AssertionError(f"long-recipe: the resumed process {resumed}")
+    GRID_LAUNCHES["long_recipe"] = tuple(resumed["grid_launches"])
+    log("long-recipe", steps=LONG["steps"], lr_bump_at=LONG["bump"], killed_in=LONG["kill"] + 1,
+        resumed_at=mid + 1, relogged=len(again), exact=sum(same for _, same in again),
+        lr_after_bump=sorted(lrs)[0], losses_resumed=resumed["losses"],
+        fwd_launches=resumed["launches"][0], bwd_launches=resumed["launches"][1],
+        printed=printed.getvalue().strip().splitlines(), seconds=round(seconds, 3))
+    return tuple(resumed["launches"])
+
+
 def flat_items(a, b, key=()):
     """The (key, a's value, b's value) leaves of two nested checkpoints;
     a key only one of them has pairs with None."""
@@ -1440,15 +1580,17 @@ DDP_FIRST_END, DDP_END = 2, 3  # the launched run: 2 steps, then a resume to 3
 GROUP_LINE = re.compile(r"Process group: backend (\S+), rank (\d+) of (\d+), on (\S+)")
 
 
-def ddp_child(out: Path, argv: list) -> int:
-    """The process that ``[ddp-train]`` starts under the launcher: ``cli.train``
+def train_child(out: Path, argv: list) -> int:
+    """A process that ``[ddp-train]`` (under the launcher) and
+    ``[long-recipe]`` (through ``flagship_runs``) start: ``cli.train``
     (``cli.train.main(argv)``, what ``-m ava256_tpu_torch.cli.train`` runs)
-    with its steps watched, the result written to ``out`` as JSON."""
+    with its steps watched, the result written to ``out`` as JSON when it
+    ends."""
     reset_march_launches()  # this path starts here
     with LogLines() as log_lines, Watched() as watched:
         state = cli_train.main(argv)
     launches = march_launches()  # this path ends here
-    GRID_LAUNCHES["ddp_child"] = grid_launches()
+    GRID_LAUNCHES["child"] = grid_launches()
     device = next(state.model.parameters()).device
     out.write_text(json.dumps(dict(
         step=state.step, losses=watched.losses, steptimer_ms=watched.ms(0),
@@ -1457,7 +1599,7 @@ def ddp_child(out: Path, argv: list) -> int:
         resumed_at=[int(m.group(1)) for ln in log_lines.lines
                     if (m := re.match(r"Resumed from .* at step (\d+)", ln))],
         collectives=dict(parallel.COUNTS), group_left=not parallel.is_initialized(),
-        grid_launches=GRID_LAUNCHES["ddp_child"],
+        grid_launches=GRID_LAUNCHES["child"],
         device=str(device), peak_gib=torch.cuda.max_memory_allocated(device) / 2**30)))
     return 0
 
@@ -1485,7 +1627,7 @@ def ddp_train(dev: torch.device, work: Path):
     for end in (DDP_FIRST_END, DDP_END):
         out = work / f"ddp_{end}.json"
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-               "1", os.path.abspath(__file__), "--ddp-child", str(out), "--", "--config",
+               "1", os.path.abspath(__file__), "--train-child", str(out), "--", "--config",
                CONFIG262K_YAML, "--device", dev.type, f"assets={work / 'assets'}",
                f"train.maxiter={end}", "mesh.multihost=true",
                f"progress.output_path={work / 'run262k_ddp'}"]
@@ -1672,9 +1814,11 @@ def flagship_kernel_bwd(args, state, plain_state, boxes: int, samples: int, dev:
                                    if a is not None):
             raise AssertionError(f"{phase}: two runs differ (max rel {rerun})")
         del run2
-        # bits of headroom of each template channel's fixed-point bound over
-        # its largest gradient (the kernel's header says what they cost)
-        bounds, _ = rc.fixed_point_bounds(g, scal, tpl, warp, dt, fadescale, fadeexp, nbuf)
+        # bits of headroom of each template channel's fixed-point bound (over
+        # the cells the forward read, as the kernel takes it) over its largest
+        # gradient (the kernel's header says what they cost)
+        bounds, _ = rc.fixed_point_bounds(g, scal, tpl, warp, dt, fadescale, fadeexp, nbuf,
+                                          state=state)
         headroom = [round(math.log2(float(b) / float(run1[0][..., c].abs().max())), 2)
                     for c, b in enumerate(bounds[:4].tolist())]
         fixed_point.check(dev)
@@ -2195,6 +2339,7 @@ def main() -> int:
     model, ds, batches, mi, render_launches, fwd_ms = flagship_render(dev)
     train_launches, step_ms = flagship_train(model, ds, batches, dev)
     gsk = grid_sample_phase(record_grid_samples(model, batches[0], dev), dev)
+    traceprof_launches = traceprof_phase(model, ds, batches[0], dev)
     del model, batches
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as work:
@@ -2218,6 +2363,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         resume_launches = resume_exact(dev, work)
         torch.cuda.empty_cache()
+        long_launches = long_recipe(dev, work)
         csv = capture_write(work)
         img_hw = capture_io(work, csv)
         loaderbench_phase()
@@ -2232,6 +2378,8 @@ def main() -> int:
     args, state, plain_state, boxes, samples, k = flagship_kernel(mi, dev)
     kb = flagship_kernel_bwd(args, state, plain_state, boxes, samples, dev)
     del args, state, plain_state, mi
+    torch.cuda.empty_cache()
+    fwdprof_launches = fwdprof_phase(dev)
     torch.cuda.empty_cache()
     xla = xla_march(dev)
     torch.cuda.empty_cache()
@@ -2248,7 +2396,8 @@ def main() -> int:
              + steady_launches[0] + bf16_train_launches[0] + bf16_cli_launches[0]
              + turns_launches[0] + repeat_launches[0] + resume_launches[0]
              + capture_launches[0] + capture_cli_launches[0]
-             + ddp_launches[0] + xla_train_launches[0] + bench_launches[0],
+             + ddp_launches[0] + xla_train_launches[0] + bench_launches[0]
+             + traceprof_launches[0] + long_launches[0] + fwdprof_launches[0],
              launches_render=render_launches, launches_train=train_launches[0],
              launches_loop=loop_launches[0], launches_cli=cli_launches[0],
              launches_loop_steady=steady_launches[0],
@@ -2258,6 +2407,8 @@ def main() -> int:
              launches_capture_train=capture_launches[0],
              launches_capture_cli=capture_cli_launches[0], launches_ddp_train=ddp_launches[0],
              launches_xla_train=xla_train_launches[0], launches_bench=bench_launches[0],
+             launches_traceprof=traceprof_launches[0], launches_long_recipe=long_launches[0],
+             launches_fwdprof=fwdprof_launches[0],
              max_abs_err=max(small_err, k["max_abs_err"], k262["max_abs_err"]),
              ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
              library_ms=None,
@@ -2274,7 +2425,8 @@ def main() -> int:
              + steady_launches[1] + bf16_train_launches[1] + bf16_cli_launches[1]
              + turns_launches[1] + repeat_launches[1] + resume_launches[1]
              + capture_launches[1] + capture_cli_launches[1]
-             + ddp_launches[1] + xla_train_launches[1] + bench_launches[1],
+             + ddp_launches[1] + xla_train_launches[1] + bench_launches[1]
+             + traceprof_launches[1] + long_launches[1],
              launches_train=train_launches[1], launches_loop=loop_launches[1],
              launches_cli=cli_launches[1], launches_loop_steady=steady_launches[1],
              launches_bf16_train=bf16_train_launches[1], launches_dtype_turns=turns_launches[1],
@@ -2282,10 +2434,12 @@ def main() -> int:
              launches_capture_train=capture_launches[1],
              launches_capture_cli=capture_cli_launches[1], launches_ddp_train=ddp_launches[1],
              launches_xla_train=xla_train_launches[1], launches_bench=bench_launches[1],
+             launches_traceprof=traceprof_launches[1], launches_long_recipe=long_launches[1],
              # launches that were handed the forward's saved state (all of them)
              launches_with_state=train_launches[2] + loop_launches[2] + steady_launches[2]
              + bf16_train_launches[2] + turns_launches[2] + repeat_launches[2]
-             + resume_launches[2] + capture_launches[2] + ddp_launches[2],
+             + resume_launches[2] + capture_launches[2] + ddp_launches[2]
+             + traceprof_launches[2] + long_launches[2],
              max_abs_err=max(small_bwd_err, kb["max_abs_err"], kb262["max_abs_err"]), ms=kb["ms"],
              plain_ms=kb["plain_ms"], bound_ms=kb["bound_ms"], bound_by=kb["bound_by"],
              library_ms=None,
@@ -2343,6 +2497,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--ddp-child"]:  # [ddp-train]'s launched process
-        sys.exit(ddp_child(Path(sys.argv[2]), sys.argv[4:]))
+    if sys.argv[1:2] == ["--train-child"]:  # [ddp-train]'s and [long-recipe]'s processes
+        sys.exit(train_child(Path(sys.argv[2]), sys.argv[4:]))
     sys.exit(main())

@@ -69,7 +69,8 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln])
 
     mi = chip_smoke.flagship_render(dev)[3]
-    args = chip_smoke.flagship_scene_args(mi, dev)[0]
+    args = chip_smoke.flagship_scene_args(mi, dev, chip_smoke.FLAGSHIP["tile"],
+                                          chip_smoke.FLAGSHIP["max_hit"])[0]
     gid, scal, t_o, t_d, t_mm, *rest = args
     g = torch.randn((gid.shape[0], 4, t_o.shape[2]), device=dev,
                     generator=torch.Generator(device=dev).manual_seed(7))

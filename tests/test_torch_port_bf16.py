@@ -63,20 +63,16 @@ rounding where a layer's output meets a float32 operation in one fusion.
 """
 
 import pickle
+from unittest import mock
 
 import numpy as np
 import pytest
-from unittest import mock
 
 import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import torch
 
-from ava256_tpu.factory import get_autoencoder as jax_get_autoencoder
-from ava256_tpu.ops import layers as jax_layers
-from ava256_tpu.train.step import BATCH_MODEL_KEYS, make_train_step as jax_make_train_step
-from ava256_tpu.train import state as jax_state
 from ava256_tpu_torch.config import load_config
 from ava256_tpu_torch.convert import flax_to_state_dict, load_flax
 from ava256_tpu_torch.data.synthetic import SyntheticDataset, none_collate, synthetic_uvdata
@@ -86,8 +82,13 @@ from ava256_tpu_torch.train import loop
 from ava256_tpu_torch.train.state import TrainState, make_optimizer
 from ava256_tpu_torch.train.step import make_train_step
 
+from ava256_tpu.factory import get_autoencoder as jax_get_autoencoder
+from ava256_tpu.ops import layers as jax_layers
+from ava256_tpu.train.step import BATCH_MODEL_KEYS, make_train_step as jax_make_train_step
+from ava256_tpu.train import state as jax_state
+
 from tests.test_torch_port_model import OPTS, SIZES, _jax_forward, _perturb, _port_forward
-from tests.test_torch_port_train import LOSS_WEIGHTS, NORMAL, WARMUP, _capture_grads
+from tests.test_torch_port_train import LOSS_WEIGHTS, NORMAL, _capture_grads
 
 BF16 = torch.bfloat16
 

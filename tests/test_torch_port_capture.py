@@ -55,12 +55,6 @@ import pytest
 import torch
 from PIL import Image
 
-import ava256_tpu.native as jax_native
-from ava256_tpu.data import dataset as jd
-from ava256_tpu.data.loader import ShardedLoader as JaxShardedLoader
-from ava256_tpu.geometry import krt as jkrt
-from ava256_tpu.geometry import ply as jply
-from ava256_tpu.native import build as jax_native_build
 from ava256_tpu_torch import native
 from ava256_tpu_torch.cli import eval as port_eval
 from ava256_tpu_torch.cli import generate_id_cond as port_idc
@@ -74,6 +68,13 @@ from ava256_tpu_torch.geometry import camera_params, load_camera_calibration, pa
 from ava256_tpu_torch.ops.cuda_lib import HOST_FLAGS
 from ava256_tpu_torch.train import loop
 from ava256_tpu_torch.utils import png_bytes
+
+import ava256_tpu.native as jax_native
+from ava256_tpu.data import dataset as jd
+from ava256_tpu.data.loader import ShardedLoader as JaxShardedLoader
+from ava256_tpu.geometry import krt as jkrt
+from ava256_tpu.geometry import ply as jply
+from ava256_tpu.native import build as jax_native_build
 
 torch.set_num_threads(min(4, torch.get_num_threads()))
 NVERTS = 64

@@ -40,9 +40,6 @@ import torch
 
 import jax
 
-import ava256_tpu.platform
-import ava256_tpu.train.init
-from ava256_tpu.parallel.mesh import make_mesh
 from ava256_tpu_torch.cli import eval as port_eval
 from ava256_tpu_torch.cli import generate_id_cond as port_idc
 from ava256_tpu_torch.cli import render as port_render
@@ -52,6 +49,10 @@ from ava256_tpu_torch.convert import load_train_state
 from ava256_tpu_torch.data.synthetic import write_topology_obj
 from ava256_tpu_torch.train import loop
 from ava256_tpu_torch.train.state import TrainState, make_optimizer, save_checkpoint
+
+import ava256_tpu.platform
+import ava256_tpu.train.init
+from ava256_tpu.parallel.mesh import make_mesh
 
 CONFIG = "configs/config-synthetic.yaml"
 SHRINK = ["train.maxiter=2", "model.nprims=256", "model.primsize=16",

@@ -20,10 +20,11 @@ import logging
 import pytest
 import yaml
 
-from ava256_tpu.config import Config as JaxConfig
-from ava256_tpu.config import load_config as jax_load_config
 from ava256_tpu_torch.config import (
     Config, YamlSubsetError, load_config, parse_yaml, resolve_scalar)
+
+from ava256_tpu.config import Config as JaxConfig
+from ava256_tpu.config import load_config as jax_load_config
 
 CONFIGS = sorted(glob.glob("configs/*.yaml"))
 

@@ -24,13 +24,14 @@ import numpy as np
 import pytest
 import torch
 
+from ava256_tpu_torch.data import (
+    CameraSplit, ShardedLoader, SyntheticDataset, device_prefetch, last_n_camindices)
+from ava256_tpu_torch.data.loader import Uploader
+
 from ava256_tpu.data.dataset import CameraSplit as JaxCameraSplit
 from ava256_tpu.data.dataset import last_n_camindices as jax_last_n_camindices
 from ava256_tpu.data.loader import ShardedLoader as JaxShardedLoader
 from ava256_tpu.data.synthetic import SyntheticDataset as JaxSyntheticDataset
-from ava256_tpu_torch.data import (
-    CameraSplit, ShardedLoader, SyntheticDataset, device_prefetch, last_n_camindices)
-from ava256_tpu_torch.data.loader import Uploader
 
 SMALL = dict(nident=2, ncams=5, nframes=3, height=12, width=10, texsize=16)
 

@@ -37,12 +37,13 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from ava256_tpu.train.step import BATCH_MODEL_KEYS
 from ava256_tpu_torch.convert import flax_to_state_dict
 from ava256_tpu_torch.data.synthetic import SyntheticDataset, none_collate, synthetic_uvdata
 from ava256_tpu_torch.factory import get_autoencoder
 from ava256_tpu_torch.models.decoders.assembler import tbn_frames
 from ava256_tpu_torch.ops.layers import Conv2d, Conv2dWN, ConvTranspose2dWN, Linear, LinearWN
+
+from ava256_tpu.train.step import BATCH_MODEL_KEYS
 
 CASES = {"16384x8^3": (16384, 8), "262144x2^3": (262144, 2)}
 TEXSIZE, RAYS = 1024, 16

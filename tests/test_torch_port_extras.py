@@ -25,11 +25,6 @@ import jax.numpy as jnp
 import torch
 from torch import nn
 
-from ava256_tpu.geometry.ply import parse_ply_vertices_from_bytesio as jax_ply_bytesio
-from ava256_tpu.ops import extras as jx
-from ava256_tpu.ops import layers as jl
-from ava256_tpu.ops.stepraymarch import step_raymarch as jax_step_raymarch
-from ava256_tpu.train.losses import mean_ell_2 as jax_mean_ell_2
 from ava256_tpu_torch.convert import flax_to_state_dict, load_flax
 from ava256_tpu_torch.geometry.ply import parse_ply_vertices_from_bytesio
 from ava256_tpu_torch.ops import (
@@ -37,6 +32,12 @@ from ava256_tpu_torch.ops import (
     fuse_weightnorm, step_raymarch)
 from ava256_tpu_torch.ops.layers import nchw_to_nhwc, nhwc_to_nchw
 from ava256_tpu_torch.train.losses import mean_ell_2
+
+from ava256_tpu.geometry.ply import parse_ply_vertices_from_bytesio as jax_ply_bytesio
+from ava256_tpu.ops import extras as jx
+from ava256_tpu.ops import layers as jl
+from ava256_tpu.ops.stepraymarch import step_raymarch as jax_step_raymarch
+from ava256_tpu.train.losses import mean_ell_2 as jax_mean_ell_2
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -9,7 +9,8 @@ the rays' own row ranges, in the port's raymarch
 kernels' plain PyTorch versions.
 
 - ``march_tiles_plain`` with the state output returns the same RGBA, bit for
-  bit, and a state that says what the composite did;
+  bit, and a state that says what the composite did; a tile marches alone
+  (its own windows and early exit, as the kernels' block);
 - the op's five gradients are the same, bit for bit, whether the backward is
   handed the forward's saved state or derives it itself, on the scenes of the
   backward tests (saturating, early-out, nbuf truncation, warp, prim_mask,
@@ -22,7 +23,10 @@ kernels' plain PyTorch versions.
 - what ``_check_tiles`` refuses: a misaligned template table, a state of the
   wrong shape or on another device;
 - a trilinear corner outside the box reads zero whatever lies in the cell its
-  index is clamped to, a non-finite value included.
+  index is clamped to, a non-finite value included, and the backward's
+  fixed-point bound, taken over the cells the forward read, is finite and
+  leaves the negative-density bit clear there (a read inf cell makes it
+  non-finite); that bound holds on the small scenes.
 """
 
 import numpy as np
@@ -31,6 +35,7 @@ import pytest
 import torch
 
 from ava256_tpu_torch.data.synthetic import raymarch_scene
+from ava256_tpu_torch.ops import fixed_point
 from ava256_tpu_torch.ops import raymarch_cuda as rc
 from ava256_tpu_torch.ops.math3d import rodrigues
 
@@ -88,6 +93,27 @@ def test_state_output_leaves_rgba_alone(case):
     assert float((state[:, :4] * (~saturated)[:, None]).abs().max()) == 0.0
     if case in ("adversarial_early_out", "bs8_saturating"):
         assert bool(saturated.any()) and not bool(saturated.all())
+
+
+@pytest.mark.parametrize("case", ["adversarial_early_out", "bs8_saturating", "bs4_warp"])
+def test_each_tile_marches_alone(case):
+    """The kernels' block marches its tile's windows from the tile's own
+    first row and stops at the end of the first one after which every ray is
+    done: a tile's output, state (the extremes of the cells it read
+    included) and sample count do not depend on the other tiles of the call."""
+    s, kw = SCENES[case]()
+    args = _tiles(s, **kw)
+    counts = {}
+    out, state = rc.march_tiles_plain(*args, counts=counts, with_state=True)
+    total = 0
+    for i in range(args[0].shape[0]):
+        one = {}
+        tile = tuple(x[i:i + 1] for x in args[:5]) + args[5:]
+        o, st = rc.march_tiles_plain(*tile, counts=one, with_state=True)
+        assert torch.equal(o, out[i:i + 1]) and torch.equal(st, state[i:i + 1]), i
+        total += int(one.get("samples", 0))
+    assert total == int(counts["samples"]) > 0
+    assert float(state[:, 5].max()) > 0
 
 
 def _op_grads(s, with_state, monkeypatch, warp=False, prim_mask=None, **kw):
@@ -210,21 +236,36 @@ def test_check_tiles_refusals():
         rc.march_tiles_bwd(gid, scal, t_o, t_d, t_mm, g, *args[5:], state=state.double())
 
 
-def poison_warped_out_box(args):
+def poison_warped_out_box(args, fill=float("inf")):
     """A copy of ``march_tiles`` arguments (with a warp table) in which the
     box most tiles hold as a candidate is warped wholly out of its template
-    (every corner of every sample lies outside) and that template is all inf,
-    and a second copy with the template zero there instead. Returns
-    (poisoned, zeroed, the box's index)."""
+    (every corner of every sample lies outside) and that template is all
+    ``fill`` (inf by default), and a second copy with the template zero there
+    instead. Returns (poisoned, zeroed, the box's index)."""
     gid = args[0]
     box = int(torch.mode(gid[gid >= 0].flatten()).values)
     out = []
-    for fill in (float("inf"), 0.0):
+    for value in (fill, 0.0):
         tpl, wrp = args[5].clone(), args[6].clone()
         wrp[box] = 3.0
-        tpl[box] = fill
+        tpl[box] = value
         out.append(args[:5] + (tpl, wrp) + args[7:])
     return out[0], out[1], box
+
+
+def _assert_unread_box_leaves_the_bound(poisoned, zeroed, state, ref_state, g):
+    """The backward's fixed-point bound over the cells the forward read is
+    the zero template's: finite, the negative-density bit clear. Returns the
+    bounds over the whole template, as they were taken before."""
+    gid, scal, t_o, t_d, t_mm, tpl, wrp, dt, fs, fe, nbuf = poisoned
+    fixed_point.flag("cpu").zero_()
+    scales = rc.fixed_point_scales(g, scal, tpl, wrp, state, dt, fs, fe, nbuf)
+    fixed_point.check("cpu")  # raises if the negative-density bit was set
+    bounds, alpha_min = rc.fixed_point_bounds(g, scal, tpl, wrp, dt, fs, fe, nbuf, state=state)
+    zero, _ = rc.fixed_point_bounds(g, scal, *zeroed[5:7], dt, fs, fe, nbuf, state=ref_state)
+    assert bool(torch.isfinite(bounds).all()) and bool(torch.isfinite(scales).all())
+    assert torch.equal(bounds, zero) and float(alpha_min) == 0.0
+    return rc.fixed_point_bounds(g, scal, tpl, wrp, dt, fs, fe, nbuf)
 
 
 def test_cell_outside_the_box_is_not_read():
@@ -244,3 +285,68 @@ def test_cell_outside_the_box_is_not_read():
     for a, b in zip(got, want):
         assert bool(torch.isfinite(a).all()) and float(b.abs().max()) > 0
         assert torch.equal(a, b)
+    # the kernel's fixed-point bound: over the cells read, finite; over the
+    # whole template (as it was taken before), inf, which made the scale NaN
+    whole, _ = _assert_unread_box_leaves_the_bound(poisoned, zeroed, state, ref_state, g)
+    assert not bool(torch.isfinite(whole).all())
+
+
+def test_unread_negative_density_leaves_the_flag_clear():
+    """A negative density in cells that no sample reads: the bound over the
+    cells read is the zero template's and the negative-density bit stays
+    clear (over the whole template it was set, and the training loop
+    raised); the plain backward equals the zero template's."""
+    s, kw = SCENES["bs4_warp"]()
+    poisoned, zeroed, _ = poison_warped_out_box(_tiles(s, **kw), fill=-5.0)
+    gid, scal, t_o, t_d, t_mm, *rest = poisoned
+    out, state = rc.march_tiles(*poisoned, with_state=True)
+    ref, ref_state = rc.march_tiles(*zeroed, with_state=True)
+    assert torch.equal(out, ref) and torch.equal(state, ref_state)
+    g = torch.from_numpy(np.random.RandomState(3).randn(*out.shape).astype(np.float32))
+    _, whole_min = _assert_unread_box_leaves_the_bound(poisoned, zeroed, state, ref_state, g)
+    assert float(whole_min) < 0
+    got = rc.march_tiles_bwd(gid, scal, t_o, t_d, t_mm, g, *rest, state=state)
+    want = rc.march_tiles_bwd(gid, scal, t_o, t_d, t_mm, g, *zeroed[5:], state=ref_state)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_a_read_inf_cell_gives_a_non_finite_bound():
+    """An inf in cells the samples do read makes the bound of the alpha and
+    warp tables, and so their scales, non-finite: the backward then reads
+    NaN there, as the reference's own gradient would be."""
+    s, kw = SCENES["bs4_warp"]()
+    args = _tiles(s, **kw)
+    gid, scal, t_o, t_d, t_mm, tpl, wrp, dt, fs, fe, nbuf = args
+    tpl = tpl.clone()
+    tpl[int(torch.mode(gid.flatten()).values)] = float("inf")
+    _, state = rc.march_tiles(gid, scal, t_o, t_d, t_mm, tpl, wrp, dt, fs, fe, nbuf,
+                              with_state=True)
+    assert float(state[:, 5].max()) == float("inf")
+    fixed_point.flag("cpu").zero_()
+    scales = rc.fixed_point_scales(torch.ones(t_o.shape[0], 4, t_o.shape[2]), scal, tpl, wrp,
+                                   state, dt, fs, fe, nbuf)
+    fixed_point.check("cpu")
+    assert bool(torch.isnan(scales[3:]).all()) and bool(torch.isfinite(scales[:3]).all())
+
+
+@pytest.mark.parametrize("case", ["bs2", "bs4_warp", "bs8_saturating", "bs16"])
+def test_bounds_over_the_cells_read_hold(case):
+    """The backward's bounds taken over the cells the forward read (its
+    state) are at most the whole template's and at least the sum of |the
+    plain version's gradients| of each channel group."""
+    s, kw = SCENES[case]()
+    args = _tiles(s, **kw)
+    gid, scal, t_o, t_d, t_mm, tpl, wrp, dt, fs, fe, nbuf = args
+    _, state = rc.march_tiles_plain(*args, with_state=True)
+    g = torch.from_numpy(np.random.RandomState(5).randn(t_o.shape[0], 4, t_o.shape[2])
+                         .astype(np.float32))
+    d_tpl, d_wrp, _ = rc.march_tiles_bwd_plain(gid, scal, t_o, t_d, t_mm, g, *args[5:],
+                                               state=state)
+    read, alpha_min = rc.fixed_point_bounds(g, scal, tpl, wrp, dt, fs, fe, nbuf, state=state)
+    whole, _ = rc.fixed_point_bounds(g, scal, tpl, wrp, dt, fs, fe, nbuf)
+    sums = [float(d_tpl[..., c].abs().sum()) for c in range(4)]
+    sums.append(float(d_wrp.abs().sum()) if wrp is not None else 0.0)
+    assert float(alpha_min) == 0.0 and bool((read <= whole).all())
+    for c, (b, total) in enumerate(zip(read.tolist(), sums)):
+        assert b >= total, (c, b, total)
+    assert min(sums[:4]) > 0.0

@@ -16,8 +16,9 @@ import torch
 
 import jax.numpy as jnp
 
-from ava256_tpu.train import metrics as jax_metrics
 from ava256_tpu_torch.train import metrics
+
+from ava256_tpu.train import metrics as jax_metrics
 
 SIZES = [(37, 50), (64, 64), (23, 31)]
 

@@ -31,12 +31,13 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from ava256_tpu.train.step import BATCH_MODEL_KEYS
 from ava256_tpu_torch.convert import flax_to_state_dict, load_flax
 from ava256_tpu_torch.data.synthetic import SyntheticDataset, none_collate, synthetic_uvdata
 from ava256_tpu_torch.factory import get_autoencoder
 from ava256_tpu_torch.models.bottleneck import kl_loss_stable
 from ava256_tpu_torch.render import decode
+
+from ava256_tpu.train.step import BATCH_MODEL_KEYS
 
 # dt 16 / volradius 256 with 64 rows spans 4 units: past the cube's diagonal,
 # so the march reaches the head (at dt 1 and 32 rows it would end in front)
@@ -300,6 +301,7 @@ def test_port_imports_without_jax():
         "import ava256_tpu_torch.cli.render, ava256_tpu_torch.cli.generate_id_cond\n"
         "import ava256_tpu_torch.bench, ava256_tpu_torch.kbench\n"
         "import ava256_tpu_torch.flagship_runs, ava256_tpu_torch.loaderbench\n"
+        "import ava256_tpu_torch.traceprof, ava256_tpu_torch.fwdprof\n"
         "import ava256_tpu_torch.ops.fixed_point, ava256_tpu_torch.ops.grid_sample\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules\n"

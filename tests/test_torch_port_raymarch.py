@@ -24,10 +24,11 @@ import pytest
 import jax.numpy as jnp
 import torch
 
-from ava256_tpu.ops.raymarch_pallas import _tile_and_cull, mvp_raymarch_pallas
-from ava256_tpu.ops.raymarch_ref import mvp_raymarch_reference as jax_reference
 from ava256_tpu_torch.ops import raymarch_cuda as rc
 from ava256_tpu_torch.ops.raymarch_ref import mvp_raymarch_reference
+
+from ava256_tpu.ops.raymarch_pallas import _tile_and_cull, mvp_raymarch_pallas
+from ava256_tpu.ops.raymarch_ref import mvp_raymarch_reference as jax_reference
 
 from tests.test_raymarch import make_scene
 from tests.test_raymarch_pallas import _adversarial_scene

@@ -26,11 +26,12 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from ava256_tpu.ops.raymarch_pallas import mvp_raymarch_pallas
 from ava256_tpu_torch.data.synthetic import raymarch_scene
 from ava256_tpu_torch.models.raymarcher import Raymarcher
 from ava256_tpu_torch.ops import raymarch_cuda as rc
 from ava256_tpu_torch.ops.math3d import quaternion_to_matrix, rodrigues
+
+from ava256_tpu.ops.raymarch_pallas import mvp_raymarch_pallas
 
 from tests.test_raymarch import make_scene
 from tests.test_raymarch_pallas import _adversarial_scene

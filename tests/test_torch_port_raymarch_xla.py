@@ -27,8 +27,6 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from ava256_tpu.ops.raymarch_xla import mvp_raymarch_xla as jax_xla
-from ava256_tpu.train.step import BATCH_MODEL_KEYS
 from ava256_tpu_torch import kbench
 from ava256_tpu_torch.config import load_config
 from ava256_tpu_torch.convert import load_flax
@@ -39,6 +37,9 @@ from ava256_tpu_torch.ops.math3d import rodrigues
 from ava256_tpu_torch.ops.raymarch_ref import mvp_raymarch_reference
 from ava256_tpu_torch.ops.raymarch_xla import march_compacted, mvp_raymarch_xla
 from ava256_tpu_torch.train import loop
+
+from ava256_tpu.ops.raymarch_xla import mvp_raymarch_xla as jax_xla
+from ava256_tpu.train.step import BATCH_MODEL_KEYS
 from tests.test_raymarch import make_scene
 
 LEAVES = ("template", "primpos", "primrot", "primscale", "warp")

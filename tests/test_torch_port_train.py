@@ -36,11 +36,6 @@ import jax.numpy as jnp
 import optax
 import torch
 
-from ava256_tpu.data import cond_cache as jax_cc
-from ava256_tpu.data.synthetic import SyntheticDataset as JaxSyntheticDataset
-from ava256_tpu.train import losses as jax_losses
-from ava256_tpu.train import state as jax_state
-from ava256_tpu.train.step import BATCH_MODEL_KEYS, make_train_step as jax_make_train_step
 from ava256_tpu_torch.convert import flax_to_state_dict, load_flax, load_train_state
 from ava256_tpu_torch.data import cond_cache as cc
 from ava256_tpu_torch.data.synthetic import SyntheticDataset, none_collate, synthetic_uvdata
@@ -54,6 +49,12 @@ from ava256_tpu_torch.train.state import (
     Optimizer, TrainState, clip_by_global_norm, latest_checkpoint_step, make_optimizer,
     restore_checkpoint, save_checkpoint, scrub_nonfinite, step_lr_schedule)
 from ava256_tpu_torch.train.step import make_eval_step, make_train_step, step_generator
+
+from ava256_tpu.data import cond_cache as jax_cc
+from ava256_tpu.data.synthetic import SyntheticDataset as JaxSyntheticDataset
+from ava256_tpu.train import losses as jax_losses
+from ava256_tpu.train import state as jax_state
+from ava256_tpu.train.step import BATCH_MODEL_KEYS, make_train_step as jax_make_train_step
 
 from tests.test_torch_port_model import OPTS, SIZES, _perturb
 
