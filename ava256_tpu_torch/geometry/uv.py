@@ -222,5 +222,11 @@ def create_uv_baridx(
         [np.flipud(bary_img[:, :, k]) for k in range(3)], axis=0
     ).astype(np.float32)
 
-    np.savez_compressed(cache_file, uv_idx=idx, uv_bary=bar)
+    # written under a name of this process, then renamed: another process
+    # building the same maps (the ranks of a process group) never reads a
+    # file that is still being written
+    tmp = cache_file.with_name(f"{cache_file.name}.{os.getpid()}.tmp")
+    with open(tmp, "wb") as f:
+        np.savez_compressed(f, uv_idx=idx, uv_bary=bar)
+    os.replace(tmp, cache_file)
     return {"uv_idx": idx, "uv_bary": bar, "uv_coord": vt, "uv_tri": vti, "tri": vi}

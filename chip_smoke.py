@@ -170,7 +170,9 @@ Phases (each prints one line; any failure exits non-zero):
    from the checkpoint after step 8; each ``cli.train`` process this
    script's ``--train-child``): the run's exit code, steps 9 and 10 re-logged
    with equal losses, lr 2.8e-4 from the bump, one launch of each kernel a
-   step in the resumed process;
+   step in the resumed process; ``[latent]``: ``cli.train`` of the flagship
+   in bfloat16 for steps 0-60, the KL term and the bottleneck's largest |mu|
+   at steps 18, 30, 45 and 60 and the median KL of steps 40-60 printed;
 11. ``[bench]``: ``python -m ava256_tpu_torch.bench`` at its defaults in a
    child process, its JSON line printed under the tag (bench.py's keys,
    finite values, one launch of each kernel per train step), then
@@ -1345,6 +1347,61 @@ def long_recipe(dev: torch.device, work: Path):
     return tuple(resumed["launches"])
 
 
+# [latent]: the expression latent over the first 60 steps
+LATENT_STEPS, LATENT_AT, LATENT_WINDOW = 61, (18, 30, 45, 60), (40, 60)
+KLDIV = re.compile(r"Iteration (\d+) loss = .*kldiv = ([^,\s]+)")
+
+
+def latent(dev: torch.device, work: Path):
+    """[latent]: ``cli.train`` of the flagship in bfloat16 from scratch for
+    steps 0-60 (the warm-up's first 61 steps), the bottleneck's mu watched in
+    every training forward. Prints the KL term (the run's log lines) and the
+    largest |mu| at steps 18, 30, 45 and 60, and the median KL of steps
+    40-60: the window where the flagship's latent collapses on the card (at
+    this render size the inputs' doing, not the port's: ``docs/port_r12/``).
+    Checked: every loss finite, one launch of each kernel a step."""
+    run_dir = work / "latent"
+    argv = ["--config", FLAGSHIP_YAML, "--device", str(dev), f"assets={work / 'assets'}",
+            f"progress.output_path={run_dir}", f"train.maxiter={LATENT_STEPS}",
+            "train.checkpoint_every=0", "progress.cross_id=false"] + BF16_OPTS
+    mu_max, build = [], loop.build_model
+
+    def watched_build(*args, **kwargs):
+        model = build(*args, **kwargs)
+        model.bottleneck.register_forward_hook(
+            lambda m, i, out: mu_max.append(out[1].detach().abs().amax())
+            if torch.is_grad_enabled() else None)
+        return model
+
+    reset_march_launches()  # this path starts here
+    t0 = time.perf_counter()
+    loop.build_model = watched_build
+    try:
+        with LogLines() as log_lines, Watched() as watched:
+            state = cli_train.main(argv)
+    finally:
+        loop.build_model = build
+    launches = march_launches()
+    seconds = time.perf_counter() - t0  # this path ends here
+    GRID_LAUNCHES["latent"] = grid_launches()
+    kl = {int(i): float(v) for ln in log_lines.lines if (m := KLDIV.match(ln))
+          for i, v in [m.groups()]}
+    mu_max = [float(x) for x in mu_max]
+    if state.step != LATENT_STEPS or sorted(kl) != list(range(LATENT_STEPS)) or \
+            len(mu_max) != LATENT_STEPS or any(s[2] != (1, 1, 1) for s in watched.steps) or \
+            launches[1] != LATENT_STEPS or not all(np.isfinite(watched.losses)):
+        raise AssertionError(f"latent: step {state.step}, {len(kl)} KL lines, {len(mu_max)} "
+                             f"forwards, launches {launches}, losses {watched.losses}")
+    log("latent", steps=LATENT_STEPS, kldiv={i: kl[i] for i in LATENT_AT},
+        mu_max_abs={i: round(mu_max[i], 4) for i in LATENT_AT},
+        kldiv_window=LATENT_WINDOW,
+        kldiv_median=float(np.median([kl[i] for i in range(LATENT_WINDOW[0],
+                                                            LATENT_WINDOW[1] + 1)])),
+        kldiv_max=max(kl.values()), kldiv_argmax=max(kl, key=kl.get),
+        fwd_launches=launches[0], bwd_launches=launches[1], seconds=round(seconds, 3))
+    return launches
+
+
 def flat_items(a, b, key=()):
     """The (key, a's value, b's value) leaves of two nested checkpoints;
     a key only one of them has pairs with None."""
@@ -2364,6 +2421,9 @@ def main() -> int:
         resume_launches = resume_exact(dev, work)
         torch.cuda.empty_cache()
         long_launches = long_recipe(dev, work)
+        torch.cuda.empty_cache()
+        latent_launches = latent(dev, work)
+        torch.cuda.empty_cache()
         csv = capture_write(work)
         img_hw = capture_io(work, csv)
         loaderbench_phase()
@@ -2397,7 +2457,8 @@ def main() -> int:
              + turns_launches[0] + repeat_launches[0] + resume_launches[0]
              + capture_launches[0] + capture_cli_launches[0]
              + ddp_launches[0] + xla_train_launches[0] + bench_launches[0]
-             + traceprof_launches[0] + long_launches[0] + fwdprof_launches[0],
+             + traceprof_launches[0] + long_launches[0] + latent_launches[0]
+             + fwdprof_launches[0],
              launches_render=render_launches, launches_train=train_launches[0],
              launches_loop=loop_launches[0], launches_cli=cli_launches[0],
              launches_loop_steady=steady_launches[0],
@@ -2408,7 +2469,7 @@ def main() -> int:
              launches_capture_cli=capture_cli_launches[0], launches_ddp_train=ddp_launches[0],
              launches_xla_train=xla_train_launches[0], launches_bench=bench_launches[0],
              launches_traceprof=traceprof_launches[0], launches_long_recipe=long_launches[0],
-             launches_fwdprof=fwdprof_launches[0],
+             launches_latent=latent_launches[0], launches_fwdprof=fwdprof_launches[0],
              max_abs_err=max(small_err, k["max_abs_err"], k262["max_abs_err"]),
              ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"], bound_by=k["bound_by"],
              library_ms=None,
@@ -2426,7 +2487,7 @@ def main() -> int:
              + turns_launches[1] + repeat_launches[1] + resume_launches[1]
              + capture_launches[1] + capture_cli_launches[1]
              + ddp_launches[1] + xla_train_launches[1] + bench_launches[1]
-             + traceprof_launches[1] + long_launches[1],
+             + traceprof_launches[1] + long_launches[1] + latent_launches[1],
              launches_train=train_launches[1], launches_loop=loop_launches[1],
              launches_cli=cli_launches[1], launches_loop_steady=steady_launches[1],
              launches_bf16_train=bf16_train_launches[1], launches_dtype_turns=turns_launches[1],
@@ -2435,11 +2496,12 @@ def main() -> int:
              launches_capture_cli=capture_cli_launches[1], launches_ddp_train=ddp_launches[1],
              launches_xla_train=xla_train_launches[1], launches_bench=bench_launches[1],
              launches_traceprof=traceprof_launches[1], launches_long_recipe=long_launches[1],
+             launches_latent=latent_launches[1],
              # launches that were handed the forward's saved state (all of them)
              launches_with_state=train_launches[2] + loop_launches[2] + steady_launches[2]
              + bf16_train_launches[2] + turns_launches[2] + repeat_launches[2]
              + resume_launches[2] + capture_launches[2] + ddp_launches[2]
-             + traceprof_launches[2] + long_launches[2],
+             + traceprof_launches[2] + long_launches[2] + latent_launches[2],
              max_abs_err=max(small_bwd_err, kb["max_abs_err"], kb262["max_abs_err"]), ms=kb["ms"],
              plain_ms=kb["plain_ms"], bound_ms=kb["bound_ms"], bound_by=kb["bound_by"],
              library_ms=None,

@@ -70,3 +70,32 @@ def test_create_uv_baridx_matches_jax(obj_path, tmp_path):
     np.testing.assert_array_equal(again["uv_idx"], ref["uv_idx"])
     back = jax_create_uv_baridx(obj_path, resolution=64, cache_dir=str(tmp_path / "port"))
     np.testing.assert_array_equal(back["uv_bary"], got["uv_bary"])
+
+
+def test_uv_cache_is_never_seen_half_written(obj_path, tmp_path, monkeypatch):
+    """The ranks of a process group build the same UV maps into one cache
+    directory: while one writes the cache file, another must find either no
+    file (and build the maps itself) or the whole of it, never a file that
+    is still being written (``EOFError`` in ``np.load``)."""
+    from ava256_tpu_torch.geometry import uv
+
+    cache = tmp_path / "cache"
+    target = cache / _cache_key(obj_path, 32)
+    save = np.savez_compressed
+    seen = []
+
+    def savez_watched(file, **arrays):
+        # what a reader would find before the arrays are written, and once
+        # they are but the file is not yet closed
+        seen.append(target.exists())
+        save(file, **arrays)
+        seen.append(target.exists())
+
+    monkeypatch.setattr(uv.np, "savez_compressed", savez_watched)
+    built = create_uv_baridx(obj_path, resolution=32, cache_dir=str(cache))
+    assert seen == [False, False]
+    assert sorted(p.name for p in cache.iterdir()) == [target.name]  # no temporary left
+    monkeypatch.undo()
+    read = create_uv_baridx(obj_path, resolution=32, cache_dir=str(cache))
+    np.testing.assert_array_equal(read["uv_idx"], built["uv_idx"])
+    np.testing.assert_array_equal(read["uv_bary"], built["uv_bary"])
