@@ -5,8 +5,9 @@
 # LICENSE file in the root directory of this source tree.
 """PNG decoding without an imaging package: the chunks are read here, the
 image data inflated with ``zlib`` and its rows unfiltered by the host data
-library (``native.png_unfilter``). 8-bit grey, grey + alpha, RGB and RGBA,
-non-interlaced; anything else raises ``ValueError`` naming the feature.
+library (``native.png_unfilter``). 8-bit grey, grey + alpha, RGB, RGBA and
+palette (its index plane, as Pillow's ``np.asarray`` gives it), non-interlaced;
+anything else raises ``ValueError`` naming the feature.
 (``utils.write_png`` writes what this reads.)"""
 
 from __future__ import annotations
@@ -19,13 +20,13 @@ import numpy as np
 from ava256_tpu_torch import native
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> channels
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> channels (palette: its index)
 _COLOUR_NAMES = {3: "palette (colour type 3)"}
 
 
 def decode_png(data: bytes) -> np.ndarray:
-    """A PNG file's bytes -> uint8 [H, W, C] (C = 1 grey, 2 grey + alpha,
-    3 RGB, 4 RGBA). Every chunk's CRC is checked."""
+    """A PNG file's bytes -> uint8 [H, W, C] (C = 1 grey or a palette's
+    indices, 2 grey + alpha, 3 RGB, 4 RGBA). Every chunk's CRC is checked."""
     data = memoryview(data)
     if bytes(data[:8]) != SIGNATURE:
         raise ValueError("not a PNG file (bad signature)")
@@ -51,10 +52,11 @@ def decode_png(data: bytes) -> np.ndarray:
         raise ValueError("PNG file has no IHDR chunk")
     w, h, depth, ctype, compression, filt, interlace = header
     if ctype not in _CHANNELS:
-        raise ValueError(f"PNG {_COLOUR_NAMES.get(ctype, f'colour type {ctype}')} is not "
-                         "supported (grey, grey + alpha, RGB and RGBA are)")
+        raise ValueError(f"PNG colour type {ctype} is not supported (grey, grey + alpha, "
+                         "RGB, RGBA and palette are)")
     if depth != 8:
-        raise ValueError(f"PNG bit depth {depth} is not supported (8 is)")
+        raise ValueError(f"PNG {_COLOUR_NAMES.get(ctype, 'image')} of bit depth {depth} is "
+                         "not supported (8 is)")
     if interlace:
         raise ValueError("interlaced (Adam7) PNG is not supported")
     if compression or filt:

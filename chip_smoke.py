@@ -108,7 +108,13 @@ Phases (each prints one line; any failure exits non-zero):
    march kernels' ms in the trace and the peak GiB, beside the flagship's
    ``[loop-steady]`` numbers; ``[capture-cli]`` runs ``cli.eval
    --holdout-cameras 1 --num-items 2``, ``cli.render --num-frames 1`` and
-   ``cli.generate_id_cond`` on that checkpoint;
+   ``cli.generate_id_cond`` on that checkpoint; ``[demos]`` (after
+   ``[capture-write]``) adds a small ``keypoints_3d.zip`` and
+   ``segmentation_parts.zip`` to the first capture, which ``write_capture``
+   does not write, runs ``python -m ava256_tpu_torch.demos.{walkthrough,
+   keypoints,mesh,segmentation}`` on it as four child processes side by
+   side (a failed demo fails the run) and prints each one's seconds and its
+   PNG's height and width;
 6e. data-parallel training on configs/config-synthetic-262k.yaml (batch 4,
    512x334 rays, 1024^2 textures, 262,144 primitives of 2^3: the two-stage
    cull, both kernels at bs 2, the table scale 128 and motion_size 512):
@@ -207,6 +213,7 @@ power limit; the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -253,6 +260,7 @@ from ava256_tpu_torch.train.profiling import TRACE_FILE, StepTimer
 from ava256_tpu_torch.train.state import (
     TrainState, latest_checkpoint_step, make_optimizer, restore_checkpoint, save_checkpoint)
 from ava256_tpu_torch.train.step import make_train_step, step_generator
+from ava256_tpu_torch.utils import png_bytes
 
 RTOL = ATOL = 1e-5
 BWD_TOL = 2e-5  # backward kernel vs plain: max |d| / max |ref| per gradient
@@ -1468,6 +1476,61 @@ def capture_write(work: Path) -> Path:
     return csv
 
 
+DEMOS = ("walkthrough", "keypoints", "mesh", "segmentation")
+
+
+def write_demo_extras(d: Path, frames: int) -> None:
+    """The two archives the demos read and ``write_capture`` does not write:
+    ``keypoints_3d.zip`` (every 40th registration vertex of each frame, as
+    ``.npy``) and ``segmentation_parts.zip`` (a 512x334 grey label map of
+    20 labels per frame)."""
+    (d / "keypoints_3d").mkdir(exist_ok=True)
+    (d / "segmentation_parts").mkdir(exist_ok=True)
+    rows, cols = np.mgrid[:512, :334]
+    with zipfile.ZipFile(d / "kinematic_tracking" / "registration_vertices.zip") as ply, \
+            zipfile.ZipFile(d / "keypoints_3d" / "keypoints_3d.zip", "w") as kp, \
+            zipfile.ZipFile(d / "segmentation_parts" / "segmentation_parts.zip", "w") as seg:
+        for f in range(1, frames + 1):
+            buf = io.BytesIO()
+            np.save(buf, parse_ply_vertices(ply.read(f"{f:06d}.ply"))[::40])
+            kp.writestr(f"keypoints_3d/{f:06d}.npy", buf.getvalue())
+            labels = ((rows // 32 + cols // 32 + f) % 20).astype(np.uint8)
+            seg.writestr(f"segmentation_parts/{f:06d}.png", png_bytes(labels))
+
+
+def demos_phase(work: Path, csv: Path):
+    """[demos]: the four capture demos on the first written capture, each as
+    ``python -m`` in a child process, the four side by side (each spends
+    most of its time importing); any failure fails the run."""
+    _, dirs = train_csv_loader(work / "captures", csv, CAPTURE["nident"])
+    d = Path(dirs[0]).resolve()
+    write_demo_extras(d, CAPTURE["nframes"])
+    out = (work / "demos").resolve()
+    out.mkdir()
+
+    def run(name):
+        png = out / f"{name}.png"
+        cmd = [sys.executable, "-m", f"ava256_tpu_torch.demos.{name}", "--capture-dir", str(d),
+               "--output", str(png)]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+        return png, cmd, res, time.perf_counter() - t0
+
+    t_all = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(DEMOS)) as pool:
+        runs = list(pool.map(run, DEMOS))
+    seconds_all = time.perf_counter() - t_all
+    for name, (png, cmd, res, seconds) in zip(DEMOS, runs):
+        if res.returncode != 0 or f"wrote {png}" not in res.stdout:
+            raise AssertionError(f"demos: {' '.join(cmd)} exited {res.returncode}:\n"
+                                 f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+        h, w, _ = png_size(png)
+        log("demos", demo=name, seconds=round(seconds, 3), png_hw=[h, w],
+            panels=[ln for ln in res.stdout.splitlines() if ln.startswith("panel ")][:4])
+    log("demos-done", seconds=round(seconds_all, 3))
+
+
 def capture_io(work: Path, csv: Path):
     """[capture-io]: one item's fetch on this host, part by part, and the
     host library's resize against its numpy restatement at full size."""
@@ -2425,6 +2488,7 @@ def main() -> int:
         latent_launches = latent(dev, work)
         torch.cuda.empty_cache()
         csv = capture_write(work)
+        demos_phase(work, csv)
         img_hw = capture_io(work, csv)
         loaderbench_phase()
         capture_launches = capture_train(dev, work, csv, img_hw, steady)

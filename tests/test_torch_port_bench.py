@@ -23,6 +23,8 @@ import torch
 from ava256_tpu_torch import bench, kbench
 from ava256_tpu_torch.ops.math3d import rodrigues
 
+from tests import _torch_port_threads  # noqa: F401
+
 # bench.py's JSON line (its keys, as it prints them)
 TOP_KEYS = {"metric", "value", "unit", "vs_baseline", "timing", "raymarch"}
 TIMING_KEYS = {"steps", "blocked_s", "pipelined_s", "chained_s", "blocked_median_s",
@@ -30,7 +32,6 @@ TIMING_KEYS = {"steps", "blocked_s", "pipelined_s", "chained_s", "blocked_median
                "device"}
 RAYMARCH_KEYS = {"fwd_s", "bwd_s", "bwd_over_fwd", "mrays_per_s_fwd", "x_hbm_speed_of_light",
                  "cull_s", "candidates", "alpha_mean", "scene"}
-torch.set_num_threads(min(4, torch.get_num_threads()))
 
 
 def _numbers(x):

@@ -82,6 +82,7 @@ from ava256_tpu_torch.train import loop
 from ava256_tpu_torch.train.state import TrainState, make_optimizer
 from ava256_tpu_torch.train.step import make_train_step
 
+from tests import _torch_port_threads  # noqa: F401
 from ava256_tpu.factory import get_autoencoder as jax_get_autoencoder
 from ava256_tpu.ops import layers as jax_layers
 from ava256_tpu.train.step import BATCH_MODEL_KEYS, make_train_step as jax_make_train_step

@@ -69,6 +69,7 @@ from ava256_tpu_torch.ops.cuda_lib import HOST_FLAGS
 from ava256_tpu_torch.train import loop
 from ava256_tpu_torch.utils import png_bytes
 
+from tests import _torch_port_threads  # noqa: F401
 import ava256_tpu.native as jax_native
 from ava256_tpu.data import dataset as jd
 from ava256_tpu.data.loader import ShardedLoader as JaxShardedLoader
@@ -76,7 +77,6 @@ from ava256_tpu.geometry import krt as jkrt
 from ava256_tpu.geometry import ply as jply
 from ava256_tpu.native import build as jax_native_build
 
-torch.set_num_threads(min(4, torch.get_num_threads()))
 NVERTS = 64
 CAMERAS = ["cam001", "cam002", "cam003"]
 FRAMES = [1, 2, 3]
@@ -356,10 +356,11 @@ def test_decode_png_reads_every_filter_type():
 def test_decode_png_refuses(what, match):
     img = _test_image(8, 9, 3, seed=0)
     data = bytearray(png_bytes(img))
-    if what == "palette":
+    if what == "palette":  # 8-bit palettes are read; a 4-bit one is refused
         buf = io.BytesIO()
-        Image.fromarray(img).convert("P").save(buf, format="PNG")
+        Image.fromarray(img).convert("P").save(buf, format="PNG", bits=4)
         data = buf.getvalue()
+        assert data[24:26] == b"\x04\x03"  # IHDR: bit depth 4, colour type 3
     elif what == "16-bit":
         buf = io.BytesIO()
         Image.fromarray(img[..., 0].astype(np.uint16) * 200).save(buf, format="PNG")

@@ -36,7 +36,6 @@ import sys
 
 import numpy as np
 import pytest
-import torch
 
 import jax
 
@@ -50,6 +49,7 @@ from ava256_tpu_torch.data.synthetic import write_topology_obj
 from ava256_tpu_torch.train import loop
 from ava256_tpu_torch.train.state import TrainState, make_optimizer, save_checkpoint
 
+from tests import _torch_port_threads  # noqa: F401
 import ava256_tpu.platform
 import ava256_tpu.train.init
 from ava256_tpu.parallel.mesh import make_mesh
@@ -60,7 +60,6 @@ SHRINK = ["train.maxiter=2", "model.nprims=256", "model.primsize=16",
           "train.batchsize=2", "data.synthetic_cams=3", "data.holdout_cameras=1",
           "model.raymarch.tile=8", "model.raymarch.max_hit=16", "model.raymarch.nbuf=64",
           "model.raymarch.dt=16.0"]
-torch.set_num_threads(min(4, torch.get_num_threads()))
 
 
 def _json_line(text):

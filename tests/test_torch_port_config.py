@@ -23,6 +23,7 @@ import yaml
 from ava256_tpu_torch.config import (
     Config, YamlSubsetError, load_config, parse_yaml, resolve_scalar)
 
+from tests import _torch_port_threads  # noqa: F401
 from ava256_tpu.config import Config as JaxConfig
 from ava256_tpu.config import load_config as jax_load_config
 

@@ -28,6 +28,7 @@ from ava256_tpu_torch.data import (
     CameraSplit, ShardedLoader, SyntheticDataset, device_prefetch, last_n_camindices)
 from ava256_tpu_torch.data.loader import Uploader
 
+from tests import _torch_port_threads  # noqa: F401
 from ava256_tpu.data.dataset import CameraSplit as JaxCameraSplit
 from ava256_tpu.data.dataset import last_n_camindices as jax_last_n_camindices
 from ava256_tpu.data.loader import ShardedLoader as JaxShardedLoader

@@ -43,13 +43,13 @@ from ava256_tpu_torch.factory import get_autoencoder
 from ava256_tpu_torch.models.decoders.assembler import tbn_frames
 from ava256_tpu_torch.ops.layers import Conv2d, Conv2dWN, ConvTranspose2dWN, Linear, LinearWN
 
+from tests import _torch_port_threads  # noqa: F401
 from ava256_tpu.train.step import BATCH_MODEL_KEYS
 
 CASES = {"16384x8^3": (16384, 8), "262144x2^3": (262144, 2)}
 TEXSIZE, RAYS = 1024, 16
 OPTS = {"tile": 16, "max_hit": 8, "nbuf": 32, "dt": 16.0}
 MARCH_KEYS = ("raypos", "raydir", "tminmax", "primpos", "primrot", "primscale", "template")
-torch.set_num_threads(min(4, torch.get_num_threads()))
 
 
 def _close(got, ref, what):

@@ -54,7 +54,8 @@ from ava256_tpu_torch.train import loop
 from ava256_tpu_torch.train.state import TrainState, make_optimizer
 from ava256_tpu_torch.train.step import make_train_step, step_generator
 
-torch.set_num_threads(min(4, torch.get_num_threads()))
+from tests import _torch_port_threads  # noqa: F401
+
 DTYPES = {"fp32": [], "bf16": ["model.dtype=bfloat16"]}
 
 

@@ -33,6 +33,7 @@ from ava256_tpu_torch.ops import (
 from ava256_tpu_torch.ops.layers import nchw_to_nhwc, nhwc_to_nchw
 from ava256_tpu_torch.train.losses import mean_ell_2
 
+from tests import _torch_port_threads  # noqa: F401
 from ava256_tpu.geometry.ply import parse_ply_vertices_from_bytesio as jax_ply_bytesio
 from ava256_tpu.ops import extras as jx
 from ava256_tpu.ops import layers as jl

@@ -18,6 +18,7 @@ from ava256_tpu_torch.data.synthetic import SyntheticDataset, write_topology_obj
 from ava256_tpu_torch.geometry import create_uv_baridx, load_obj
 from ava256_tpu_torch.geometry.uv import _cache_key
 
+from tests import _torch_port_threads  # noqa: F401
 from ava256_tpu.geometry import create_uv_baridx as jax_create_uv_baridx
 from ava256_tpu.geometry import load_obj as jax_load_obj
 from ava256_tpu.geometry.uv import _cache_key as jax_cache_key

@@ -29,9 +29,9 @@ import torch.nn.functional as F
 
 from ava256_tpu_torch.ops import grid_sample as gs
 
+from tests import _torch_port_threads  # noqa: F401
 from ava256_tpu.ops import grid_sample as jgs
 
-torch.set_num_threads(min(4, torch.get_num_threads()))
 OUT_TOL, GRAD_COS = 1e-5, 0.9999
 
 

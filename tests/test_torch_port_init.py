@@ -38,12 +38,12 @@ sys.path.insert(0, ROOT)
 from ava256_tpu_torch.convert import flax_to_state_dict  # noqa: E402
 from ava256_tpu_torch.ops.layers import ConvTranspose2dWN  # noqa: E402
 
+from tests import _torch_port_threads  # noqa: E402,F401
 from tests.test_torch_port_trajectory import (  # noqa: E402
     TINY, Inputs, JaxArm, PortArm)
 
 MIN_SIZE = 1024
 STD_SHARE, MAX_SHARE = 0.1, 0.1
-torch.set_num_threads(min(4, torch.get_num_threads()))
 
 
 @pytest.fixture(scope="module")

@@ -15,6 +15,8 @@ import pytest
 
 from ava256_tpu_torch import loaderbench
 
+from tests import _torch_port_threads  # noqa: F401
+
 # the fields scripts/loaderbench.py prints, workers 1 and 2
 FIELDS = {"source_px", "codec", "downsample", "workers", "single_thread_item_s",
           "items_per_s_w1", "items_per_s_w2", "flagship_need_items_per_s", "fixture_build_s"}

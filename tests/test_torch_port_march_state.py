@@ -39,6 +39,7 @@ from ava256_tpu_torch.ops import fixed_point
 from ava256_tpu_torch.ops import raymarch_cuda as rc
 from ava256_tpu_torch.ops.math3d import rodrigues
 
+from tests import _torch_port_threads  # noqa: F401
 from tests.test_torch_port_raymarch_bwd import CASES, NAMES, _assert_grads_close, _grads_both
 
 

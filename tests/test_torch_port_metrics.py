@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from ava256_tpu_torch.train import metrics
 
+from tests import _torch_port_threads  # noqa: F401
 from ava256_tpu.train import metrics as jax_metrics
 
 SIZES = [(37, 50), (64, 64), (23, 31)]

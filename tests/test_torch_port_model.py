@@ -37,6 +37,7 @@ from ava256_tpu_torch.factory import get_autoencoder
 from ava256_tpu_torch.models.bottleneck import kl_loss_stable
 from ava256_tpu_torch.render import decode
 
+from tests import _torch_port_threads  # noqa: F401
 from ava256_tpu.train.step import BATCH_MODEL_KEYS
 
 # dt 16 / volradius 256 with 64 rows spans 4 units: past the cube's diagonal,

@@ -23,6 +23,7 @@ from ava256_tpu_torch.convert import flax_to_state_dict
 from ava256_tpu_torch.ops.layers import nchw_to_nhwc, nhwc_to_nchw
 from ava256_tpu_torch.ops.raymarch_ref import grid_sample_3d
 
+from tests import _torch_port_threads  # noqa: F401
 from ava256_tpu import ops as jops
 from ava256_tpu.ops.layers import Conv2d as JConv2d, ConvSeq as JConvSeq, Linear as JLinear
 from ava256_tpu.ops.raymarch_ref import grid_sample_3d as jax_grid_sample_3d

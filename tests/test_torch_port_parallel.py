@@ -57,12 +57,17 @@ from ava256_tpu_torch.render import BATCH_MODEL_KEYS  # noqa: E402
 from ava256_tpu_torch.train.state import TrainState, make_optimizer  # noqa: E402
 from ava256_tpu_torch.train.step import make_train_step, step_generator  # noqa: E402
 
+from tests import _torch_port_threads  # noqa: E402,F401
+
 OPTS = {"tile": 8, "max_hit": 16, "nbuf": 64, "dt": 16.0}  # tests/test_torch_port_model.py
 LOSS_WEIGHTS = dict(irgbl1=1.0, vertl1=0.1, kldiv=1.0e-3, primvolsum=0.01)
 WARMUP = dict(running_avg_scale=True, use_gt_geo=True, residuals_weight=0.0)
 NORMAL = dict(running_avg_scale=False, use_gt_geo=False, residuals_weight=1.0)
 RENDER_ROWS = 20  # two slabs of 16 rows (two tiles of 8), the second cut at row 20
-torch.set_num_threads(min(4, torch.get_num_threads()))
+# torch's threads in the one process and in each rank: a conv's weight gradient
+# sums in an order that follows them, and the comparisons below hold at these
+# counts, whatever share of the cores the test worker has
+SINGLE_THREADS, RANK_THREADS = 4, 2
 
 
 def _free_port() -> int:
@@ -78,7 +83,7 @@ def _launch(nproc: int, mode: str, workdir: Path, timeout: float) -> None:
     procs = []
     for r in range(nproc):
         env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(nproc), LOCAL_RANK=str(r),
-                   MASTER_ADDR="localhost", MASTER_PORT=port, OMP_NUM_THREADS="2",
+                   MASTER_ADDR="localhost", MASTER_PORT=port, OMP_NUM_THREADS=str(RANK_THREADS),
                    PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
         procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), mode,
                                        str(workdir)], stdout=subprocess.PIPE,
@@ -164,6 +169,7 @@ def loop_overrides(workdir: Path) -> list:
 
 
 def _worker(mode: str, workdir: Path) -> None:
+    torch.set_num_threads(RANK_THREADS)
     if mode == "loop":  # cli.train joins the group and leaves it
         from ava256_tpu_torch.cli import train as cli_train
         from ava256_tpu_torch.data import synthetic
@@ -258,7 +264,13 @@ def runs(tmp_path_factory):
             output.register_hook(lambda g: bg_io.__setitem__("cotangent", g))
 
     hook = single.bgmodel.register_forward_hook(keep_bg)
-    losses, grads = _two_steps(single, batch, torch.from_numpy(noise), ds.vertmean, ds.vertstd)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(SINGLE_THREADS)
+    try:
+        losses, grads = _two_steps(single, batch, torch.from_numpy(noise), ds.vertmean,
+                                   ds.vertstd)
+    finally:
+        torch.set_num_threads(threads)
     hook.remove()
     # the whole render, with the weights the ranks rendered with
     after = _model(ds, ranks[0]["state_dict"])

@@ -27,6 +27,7 @@ import torch
 from ava256_tpu_torch.ops import raymarch_cuda as rc
 from ava256_tpu_torch.ops.raymarch_ref import mvp_raymarch_reference
 
+from tests import _torch_port_threads  # noqa: F401
 from ava256_tpu.ops.raymarch_pallas import _tile_and_cull, mvp_raymarch_pallas
 from ava256_tpu.ops.raymarch_ref import mvp_raymarch_reference as jax_reference
 

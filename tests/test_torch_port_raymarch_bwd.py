@@ -31,6 +31,7 @@ from ava256_tpu_torch.models.raymarcher import Raymarcher
 from ava256_tpu_torch.ops import raymarch_cuda as rc
 from ava256_tpu_torch.ops.math3d import quaternion_to_matrix, rodrigues
 
+from tests import _torch_port_threads  # noqa: F401
 from ava256_tpu.ops.raymarch_pallas import mvp_raymarch_pallas
 
 from tests.test_raymarch import make_scene

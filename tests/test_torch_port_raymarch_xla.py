@@ -38,13 +38,13 @@ from ava256_tpu_torch.ops.raymarch_ref import mvp_raymarch_reference
 from ava256_tpu_torch.ops.raymarch_xla import march_compacted, mvp_raymarch_xla
 from ava256_tpu_torch.train import loop
 
+from tests import _torch_port_threads  # noqa: F401
 from ava256_tpu.ops.raymarch_xla import mvp_raymarch_xla as jax_xla
 from ava256_tpu.train.step import BATCH_MODEL_KEYS
 from tests.test_raymarch import make_scene
 
 LEAVES = ("template", "primpos", "primrot", "primscale", "warp")
 KW = dict(fadescale=6.5, fadeexp=7.5, tile=8, max_hit=32, max_samples=512, chunk_tiles=16)
-torch.set_num_threads(min(4, torch.get_num_threads()))
 
 
 def _t(x):

@@ -37,7 +37,8 @@ import torch
 
 from ava256_tpu_torch import bench, flagship_runs, fwdprof, traceprof
 
-torch.set_num_threads(min(4, torch.get_num_threads()))
+from tests import _torch_port_threads  # noqa: F401
+
 # one 8x8 image and a one-window march: the plain march's Python frames are
 # most of a CPU trace
 TINY = dict(batch=1, height=8, width=8, nprims=256, texsize=64, primsize=16,

@@ -50,6 +50,7 @@ from ava256_tpu_torch.train.state import (
     restore_checkpoint, save_checkpoint, scrub_nonfinite, step_lr_schedule)
 from ava256_tpu_torch.train.step import make_eval_step, make_train_step, step_generator
 
+from tests import _torch_port_threads  # noqa: F401
 from ava256_tpu.data import cond_cache as jax_cc
 from ava256_tpu.data.synthetic import SyntheticDataset as JaxSyntheticDataset
 from ava256_tpu.train import losses as jax_losses
@@ -59,8 +60,6 @@ from ava256_tpu.train.step import BATCH_MODEL_KEYS, make_train_step as jax_make_
 from tests.test_torch_port_model import OPTS, SIZES, _perturb
 
 LOSS_WEIGHTS = dict(FLAGSHIP["losses"])
-# the test workers run side by side: a few threads each, not one per core
-torch.set_num_threads(min(4, torch.get_num_threads()))
 
 
 def _close(got, ref, rel, abs_=0.0, what=""):

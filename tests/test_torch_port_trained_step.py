@@ -31,7 +31,6 @@ import tempfile
 
 import numpy as np
 import pytest
-import torch
 
 if __name__ == "__main__":
     os.environ["JAX_PLATFORMS"] = "cpu"
@@ -41,6 +40,7 @@ sys.path.insert(0, ROOT)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from tests import _torch_port_threads  # noqa: E402,F401
 from tests.test_torch_port_trajectory import (  # noqa: E402
     GROUPS, TERMS, TINY, Inputs, JaxArm, compare_trained_step, jax_train_state,
     saved_state, trained_step_report)
@@ -48,7 +48,6 @@ from tests.test_torch_port_trajectory import (  # noqa: E402
 MU_RMS = 3.0
 LOGSTD_RMS, LOGSTD_MEAN = 0.2, -0.3
 PRE_STEPS = 3
-torch.set_num_threads(min(4, torch.get_num_threads()))
 
 
 def _push_bottleneck(jarm: JaxArm, inp: Inputs):

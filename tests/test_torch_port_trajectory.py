@@ -94,6 +94,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402
 
+from tests import _torch_port_threads  # noqa: E402,F401
 from ava256_tpu.factory import get_autoencoder as jax_get_autoencoder  # noqa: E402
 from ava256_tpu.geometry import create_uv_baridx as jax_create_uv_baridx  # noqa: E402
 from ava256_tpu.train import state as jax_state  # noqa: E402
@@ -478,7 +479,6 @@ EXACT_REL = 1e-4
 KL_ABS = 6e-8
 ULP_FACTOR = 10.0
 WINDOW = 3
-torch.set_num_threads(min(4, torch.get_num_threads()))
 
 
 @pytest.fixture(scope="module")
