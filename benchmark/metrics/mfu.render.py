@@ -1,0 +1,8 @@
+"""Model FLOPs of the untraced window's frames (the reference model's count)
+over its seconds and the chip's peak for the configuration's dtype, in %."""
+
+from benchmark.harness import readers
+
+
+def read(rec):
+    return readers.mfu(rec, "render")
