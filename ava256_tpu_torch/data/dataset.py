@@ -45,6 +45,7 @@ from ava256_tpu_torch.data.png import SIGNATURE as PNG_SIGNATURE
 from ava256_tpu_torch.data.png import decode_png
 from ava256_tpu_torch.geometry.krt import load_camera_calibration
 from ava256_tpu_torch.geometry.ply import parse_ply_vertices
+from ava256_tpu_torch.train.profiling import annotate
 
 logger = logging.getLogger("ava256_tpu_torch.data")
 
@@ -440,18 +441,19 @@ class MultiCaptureDataset:
 
 def none_collate(items: List[Optional[Dict[str, Any]]]) -> Optional[Dict[str, Any]]:
     """Stack dict items into a batch, dropping failed (None) samples."""
-    items = [x for x in items if x is not None]
-    if not items:
-        return None
-    out: Dict[str, Any] = {}
-    for k in items[0]:
-        vals = [it[k] for it in items]
-        if isinstance(vals[0], np.ndarray) or np.isscalar(vals[0]) or isinstance(
-            vals[0], (np.integer, np.floating, int, float, bool)
-        ):
-            out[k] = np.stack([np.asarray(v) for v in vals])
-        else:
-            out[k] = vals
+    with annotate("ava:collate"):
+        items = [x for x in items if x is not None]
+        if not items:
+            return None
+        out: Dict[str, Any] = {}
+        for k in items[0]:
+            vals = [it[k] for it in items]
+            if isinstance(vals[0], np.ndarray) or np.isscalar(vals[0]) or isinstance(
+                vals[0], (np.integer, np.floating, int, float, bool)
+            ):
+                out[k] = np.stack([np.asarray(v) for v in vals])
+            else:
+                out[k] = vals
     return out
 
 

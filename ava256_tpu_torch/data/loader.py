@@ -26,6 +26,7 @@ from typing import Any, Callable, Dict, Iterator, Optional
 import numpy as np
 
 from ava256_tpu_torch.data.dataset import none_collate
+from ava256_tpu_torch.train.profiling import annotate
 
 _WORKER_DATASET = None
 
@@ -50,12 +51,13 @@ class Upload:
     def ready(self) -> Dict[str, Any]:
         import torch
 
-        stream = torch.cuda.current_stream(self.device)
-        stream.wait_event(self.event)
-        for t in self.batch.values():
-            # the copies were allocated on the side stream: keep their memory
-            # from being reused until the consumer's stream is done with them
-            t.record_stream(stream)
+        with annotate("ava:upload"):
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(self.event)
+            for t in self.batch.values():
+                # the copies were allocated on the side stream: keep their memory
+                # from being reused until the consumer's stream is done with them
+                t.record_stream(stream)
         return self.batch
 
 
@@ -73,16 +75,17 @@ class Uploader:
     def __call__(self, batch: Dict[str, Any]):
         import torch
 
-        host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
-        if self.device.type != "cuda":
-            return {k: t.to(self.device) for k, t in host.items()}
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-        with torch.cuda.stream(self._stream):
-            out = {k: t.pin_memory().to(self.device, non_blocking=True)
-                   for k, t in host.items()}
-            event = torch.cuda.Event()
-            event.record(self._stream)
+        with annotate("ava:upload"):
+            host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+            if self.device.type != "cuda":
+                return {k: t.to(self.device) for k, t in host.items()}
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+            with torch.cuda.stream(self._stream):
+                out = {k: t.pin_memory().to(self.device, non_blocking=True)
+                       for k, t in host.items()}
+                event = torch.cuda.Event()
+                event.record(self._stream)
         return Upload(out, event, self.device)
 
     def now(self, batch: Dict[str, Any]) -> Dict[str, Any]:

@@ -47,6 +47,7 @@ import torch
 
 from ava256_tpu_torch.ops import fixed_point
 from ava256_tpu_torch.ops.cuda_lib import CudaLib
+from ava256_tpu_torch.train.profiling import annotate
 
 MARCH_FWD_LIB = CudaLib("mvp_march_fwd.cu")
 MARCH_BWD_LIB = CudaLib("mvp_march_bwd.cu")
@@ -981,10 +982,11 @@ class _Raymarch(torch.autograd.Function):
                 prim_mask, cfg):
         n, K = primpos.shape[:2]
         bs = template.shape[2]
-        t_o, t_d, t_mm, cand_gid, cand_valid, _, meta = tile_and_cull(
-            raypos, raydir, tminmax, primpos, primscale, prim_mask, cfg["tile"], cfg["max_hit"],
-            cfg["dt"], cull_group_size=cfg["cull_group_size"],
-            cull_max_groups=cfg["cull_max_groups"], two_stage=cfg["two_stage_cull"])
+        with annotate("ava:raymarch.cull"):
+            t_o, t_d, t_mm, cand_gid, cand_valid, _, meta = tile_and_cull(
+                raypos, raydir, tminmax, primpos, primscale, prim_mask, cfg["tile"],
+                cfg["max_hit"], cfg["dt"], cull_group_size=cfg["cull_group_size"],
+                cull_max_groups=cfg["cull_max_groups"], two_stage=cfg["two_stage_cull"])
         scal = candidate_affines(primpos, primrot, primscale, cand_gid, cand_valid)
         gid32 = cand_gid.to(torch.int32).contiguous()
         # the rays' saturation state is asked for only when a gradient will be
@@ -1057,26 +1059,26 @@ def mvp_raymarch_cuda(
     primrot, primscale, template and warp. Options of the Pallas op that only
     shape its TPU layout (rows, candidates, ...) are accepted and ignored.
     """
-    device = resolve_device(device)
-    tensors = [raypos, raydir, tminmax, primpos, primrot, primscale, template]
-    tensors += [x for x in (warp, prim_mask) if x is not None]
-    for x in tensors:
-        if not on_device(x, device):
-            raise ValueError(f"all inputs must be on {device}, got one on {x.device}")
-    bs = template.shape[2]
-    check_primsize(bs)
-    if nbuf is None:
-        nbuf = default_nbuf(stepsize)
-    # the march holds nbuf step rows: a shorter range, never a wrong composite
-    tminmax = torch.stack(
-        [tminmax[..., 0], torch.minimum(tminmax[..., 1], tminmax[..., 0] + nbuf * float(stepsize))],
-        dim=-1)
-    n, K = primpos.shape[:2]
-    if prim_mask is None:
-        prim_mask = torch.ones((n, K), dtype=torch.float32, device=device)
-    cfg = dict(dt=float(stepsize), fadescale=float(fadescale), fadeexp=float(fadeexp),
-               tile=int(tile), max_hit=int(max_hit), nbuf=int(nbuf),
-               cull_group_size=cull_group_size, cull_max_groups=cull_max_groups,
-               two_stage_cull=two_stage_cull)
-    return _Raymarch.apply(primpos, primrot, primscale, template, warp, raypos, raydir, tminmax,
-                           prim_mask.to(torch.float32), cfg)
+    with annotate("ava:raymarch"):
+        device = resolve_device(device)
+        tensors = [raypos, raydir, tminmax, primpos, primrot, primscale, template]
+        tensors += [x for x in (warp, prim_mask) if x is not None]
+        for x in tensors:
+            if not on_device(x, device):
+                raise ValueError(f"all inputs must be on {device}, got one on {x.device}")
+        bs = template.shape[2]
+        check_primsize(bs)
+        if nbuf is None:
+            nbuf = default_nbuf(stepsize)
+        # the march holds nbuf step rows: a shorter range, never a wrong composite
+        tmax = torch.minimum(tminmax[..., 1], tminmax[..., 0] + nbuf * float(stepsize))
+        tminmax = torch.stack([tminmax[..., 0], tmax], dim=-1)
+        n, K = primpos.shape[:2]
+        if prim_mask is None:
+            prim_mask = torch.ones((n, K), dtype=torch.float32, device=device)
+        cfg = dict(dt=float(stepsize), fadescale=float(fadescale), fadeexp=float(fadeexp),
+                   tile=int(tile), max_hit=int(max_hit), nbuf=int(nbuf),
+                   cull_group_size=cull_group_size, cull_max_groups=cull_max_groups,
+                   two_stage_cull=two_stage_cull)
+        return _Raymarch.apply(primpos, primrot, primscale, template, warp, raypos, raydir, tminmax,
+                               prim_mask.to(torch.float32), cfg)

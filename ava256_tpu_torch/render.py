@@ -15,6 +15,8 @@ from typing import Dict
 import torch
 from torch import nn
 
+from ava256_tpu_torch.train.profiling import annotate
+
 BATCH_MODEL_KEYS = (
     "camrot", "campos", "focal", "princpt", "modelmatrix",
     "avgtex", "verts", "neut_avgtex", "neut_verts", "pixelcoords",
@@ -28,12 +30,13 @@ def decode(model: nn.Module, batch: Dict[str, torch.Tensor], target_tex: torch.T
     camindex, as tensors on the model's device; target_tex [B, M, M, 3] and
     target_verts [B, V, 3] the identity to render. Returns irgbrec
     [B, H, W, 3]."""
-    out = model(
-        target_neut_avgtex=target_tex,
-        target_neut_verts=target_verts,
-        idindex=batch.get("idindex"),
-        camindex=batch.get("camindex"),
-        deterministic=True,
-        **{k: batch[k] for k in BATCH_MODEL_KEYS},
-    )
+    with annotate("ava:decode"):
+        out = model(
+            target_neut_avgtex=target_tex,
+            target_neut_verts=target_verts,
+            idindex=batch.get("idindex"),
+            camindex=batch.get("camindex"),
+            deterministic=True,
+            **{k: batch[k] for k in BATCH_MODEL_KEYS},
+        )
     return out["irgbrec"]

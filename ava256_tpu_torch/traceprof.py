@@ -283,7 +283,7 @@ def aggregate(path, top: int = 40, device_line: Optional[str] = None, out=None) 
 
 class ModuleScopes:
     """While entered, every submodule's forward runs inside a
-    ``record_function("module:<qualified name>")`` scope, opened by a forward
+    ``annotate("module:<qualified name>")`` scope, opened by a forward
     pre-hook and closed by a forward hook; the hooks are removed on exit."""
 
     def __init__(self, model):
@@ -291,13 +291,13 @@ class ModuleScopes:
         self.handles = []
 
     def __enter__(self):
-        from torch.profiler import record_function
+        from ava256_tpu_torch.train.profiling import annotate
 
         open_scopes: Dict[int, list] = collections.defaultdict(list)
 
         def pre(name):
             def hook(mod, args):
-                scope = record_function(f"module:{name}")
+                scope = annotate(f"module:{name}")
                 scope.__enter__()
                 open_scopes[id(mod)].append(scope)
             return hook

@@ -6,7 +6,7 @@
 """Tracing and per-step timing, as ``ava256_tpu.train.profiling``: a step
 timer with percentile summaries written as ``timesinfo_r{rank}.npy``, a
 ``torch.profiler`` trace of a region written as a Chrome trace, and named
-regions in that trace."""
+regions in that trace (recorded only while a profiler runs)."""
 
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from pathlib import Path
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
+from torch.autograd import profiler as autograd_profiler
 
 TRACE_FILE = "trace.json"  # the Chrome trace ``trace`` writes into its logdir
 
@@ -73,10 +74,23 @@ def trace(logdir: Optional[str]) -> Iterator[None]:
     prof.export_chrome_trace(str(Path(logdir) / TRACE_FILE))
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Named region in the profiler timeline."""
-    from torch.profiler import record_function
+class annotate:
+    """A named region in the timeline of a running ``torch.profiler``: a
+    ``record_function`` opened only while a profiler records, so that
+    outside one a region costs one flag read. The port's only span
+    function."""
 
-    with record_function(name):
-        yield
+    __slots__ = ("name", "_scope")
+
+    def __init__(self, name: str) -> None:
+        self.name, self._scope = name, None
+
+    def __enter__(self) -> None:
+        if autograd_profiler._is_profiler_enabled:
+            self._scope = autograd_profiler.record_function(self.name)
+            self._scope.__enter__()
+
+    def __exit__(self, *exc) -> None:
+        if self._scope is not None:
+            self._scope.__exit__(*exc)
+            self._scope = None

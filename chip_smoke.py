@@ -61,11 +61,9 @@ Phases (each prints one line; any failure exits non-zero):
    device tables and lean batches handed to every step, no training batch
    from the held-out cameras 8 and 9, the resume, finite losses, changed
    parameters, progress_0.png and x-id/progress_0.png of the expected sizes,
-   the trace and timesinfo_r0.npy; printed: the UV build's seconds, the
-   progress render's ms, each step's StepTimer ms (each is the first of its
-   call or traced), and the traced step's device-busy share (summed kernel
-   time over the step's wall time; the profiler slows the host's launches,
-   so this is a lower bound);
+   the trace (its ``train_step`` span) and timesinfo_r0.npy; printed: the UV
+   build's seconds, the progress render's ms and each step's StepTimer ms
+   (each is the first of its call or traced);
 6b. the inference entry points on that run's checkpoint: ``cli.eval
    --holdout-cameras 2 --num-items 4`` (finite psnr_db, ssim, lpips_rf on the
    held-out split), ``cli.render --num-frames 2`` (two PNGs) and
@@ -73,8 +71,7 @@ Phases (each prints one line; any failure exits non-zero):
 6c. steady steps of the training entry point: ``cli.train`` from that
    checkpoint to step 10 with the warm-up switches on up to step 6 and step
    7 traced; printed: the StepTimer p50 of untraced steps that are not the
-   first of their call, warm-up and normal, and a normal step's device-busy
-   share (the traced step's kernel time over the untraced steps' wall time);
+   first of their call, warm-up and normal;
 6c'. ``model.dtype=bfloat16`` on the flagship: ``[bf16-train]`` runs
    ``cli.train`` as phases 6 and 6c together (2 steps from scratch, then a
    resume to step 10, step 7 traced; one launch of each kernel per step, a
@@ -103,8 +100,7 @@ Phases (each prints one line; any failure exits non-zero):
    4 items in every batch and no failed fetch, finite losses, changed
    parameters, the progress PNGs at the dataset's 512x333; printed: the
    StepTimer p50 of untraced steps that are not the first of their call
-   (all are warm-up steps: config-4 keeps the switches on for 100), the
-   device-busy share (the traced step's kernel time over that p50), the two
+   (all are warm-up steps: config-4 keeps the switches on for 100), the two
    march kernels' ms in the trace and the peak GiB, beside the flagship's
    ``[loop-steady]`` numbers; ``[capture-cli]`` runs ``cli.eval
    --holdout-cameras 1 --num-items 2``, ``cli.render --num-frames 1`` and
@@ -693,73 +689,6 @@ def png_size(path) -> tuple:
     return h, w, c
 
 
-def trace_busy(path) -> dict:
-    """From a torch.profiler Chrome trace of one train step: the step's wall
-    ms (its "train_step" annotation), the summed kernel and copy ms, the
-    device's idle time inside the step split into gaps under and over 1 ms,
-    the five longest gaps with the host op running in their middle, the
-    host's CUDA runtime calls, the five kernels that took most time, and the
-    host ops inside the step, on every thread: their count and the six that
-    took most host time of their own."""
-    events = [e for e in json.loads(Path(path).read_text())["traceEvents"] if e.get("ph") == "X"]
-    step = [e for e in events if e.get("name") == "train_step"
-            and e.get("cat") == "user_annotation"]
-    if not step:
-        raise AssertionError(f"{path}: no train_step annotation in the trace")
-    t0, t1 = step[0]["ts"], step[0]["ts"] + step[0]["dur"]
-    device = sorted((e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")),
-                    key=lambda e: e["ts"])
-    kernels = [e for e in device if e["cat"] == "kernel"]
-    runtime = [e for e in events if e.get("cat") == "cuda_runtime"]
-    gaps, busy_to = [], t0
-    for e in device + [dict(ts=t1, dur=0)]:  # idle gaps between device activity
-        if min(e["ts"], t1) > busy_to:
-            gaps.append((busy_to, min(e["ts"], t1)))
-        busy_to = max(busy_to, e["ts"] + e["dur"])
-    small = sum(b - a for a, b in gaps if b - a < 1e3)
-    large = sum(b - a for a, b in gaps if b - a >= 1e3)
-    host_ops = [e for e in events if e.get("cat") in ("cpu_op", "cuda_runtime")]
-
-    def host_at(t):
-        """The innermost host op running at time t (what the host was doing)."""
-        live = [e for e in host_ops if e["ts"] <= t < e["ts"] + e["dur"]]
-        return min(live, key=lambda e: e["dur"])["name"] if live else "python"
-
-    longest = sorted(gaps, key=lambda g: g[0] - g[1])[:5]
-    by_name = {}
-    for e in kernels:
-        by_name[e["name"][:60]] = by_name.get(e["name"][:60], 0.0) + e["dur"] / 1e3
-    grid_sample = [e for e in kernels if any(n in e["name"] for n in GS_KERNELS)]
-    launches = [e for e in runtime if "Launch" in e["name"]]
-    # host ops inside the step by self time (their time less their children's),
-    # on every thread (the backward runs on the autograd engine's own)
-    own = sorted((e for e in host_ops if t0 <= e["ts"] < t1),
-                 key=lambda e: (str(e.get("tid")), e["ts"], -e["dur"]))
-    self_ms, stack = {}, []
-    for e in own:
-        while stack and (stack[-1].get("tid") != e.get("tid")
-                         or e["ts"] >= stack[-1]["ts"] + stack[-1]["dur"]):
-            stack.pop()
-        if stack:
-            self_ms[stack[-1]["name"]] = self_ms.get(stack[-1]["name"], 0.0) - e["dur"] / 1e3
-        self_ms[e["name"]] = self_ms.get(e["name"], 0.0) + e["dur"] / 1e3
-        stack.append(e)
-    return dict(
-        step_ms=step[0]["dur"] / 1e3, kernels=len(kernels),
-        kernel_ms=sum(e["dur"] for e in kernels) / 1e3,
-        grid_sample_kernels=len(grid_sample),
-        grid_sample_kernel_ms=sum(e["dur"] for e in grid_sample) / 1e3,
-        copy_ms=sum(e["dur"] for e in device if e["cat"] != "kernel") / 1e3,
-        idle_gaps_under_1ms_ms=small / 1e3, idle_gaps_over_1ms_ms=large / 1e3,
-        runtime_calls=len(runtime), runtime_ms=sum(e["dur"] for e in runtime) / 1e3,
-        launch_calls=len(launches), launch_ms=sum(e["dur"] for e in launches) / 1e3,
-        longest_gaps=[(round((b - a) / 1e3, 3), host_at((a + b) / 2)) for a, b in longest],
-        top_kernels=[(k, round(v, 3)) for k, v in
-                     sorted(by_name.items(), key=lambda kv: -kv[1])[:5]],
-        host_ops=len(own), host_self_ms_top=[(k[:40], round(v, 3)) for k, v in
-                                            sorted(self_ms.items(), key=lambda kv: -kv[1])[:6]])
-
-
 class Watched:
     """While entered, ``loop.run``'s steps and step timers are watched: each
     step's launches (host-side counters) and its batch's index tensors are
@@ -866,7 +795,10 @@ def flagship_loop(dev: torch.device, work: Path, train_ms_per_step: float):
     xid = png_size(run_dir / "x-id" / "progress_0.png")
     if xid != (f["height"], (2 + ncross) * f["width"], 3):
         raise AssertionError(f"loop: x-id/progress_0.png is {xid}")
-    busy = trace_busy(run_dir / "profile" / TRACE_FILE)
+    events = json.loads((run_dir / "profile" / TRACE_FILE).read_text())["traceEvents"]
+    if not any(e.get("name") == "train_step" and e.get("cat") == "user_annotation"
+               for e in events):
+        raise AssertionError("loop: no train_step span in the traced step's trace")
     uv_s = [float(m.group(1)) for ln in lines
             if (m := re.match(r"UV maps at \d+\^2 ready \((\S+) s\)", ln))]
     render_ms = [float(m.group(1)) for ln in lines
@@ -879,16 +811,7 @@ def flagship_loop(dev: torch.device, work: Path, train_ms_per_step: float):
     log("loop-times", uv_build_s=uv_s[0], uv_cached_s=uv_s[1:], progress_render_ms=render_ms,
         steptimer_ms_step_0_first=watched.ms(0)[0], steptimer_ms_step_1_traced=watched.ms(0)[1],
         steptimer_ms_step_2_first=watched.ms(1)[0], train_ms_per_step=round(train_ms_per_step, 3))
-    log("loop-trace", step=1, device_busy_share_traced=busy_share(busy),
-        **{k: round(v, 3) if isinstance(v, float) else v for k, v in busy.items()})
     return launches
-
-
-def busy_share(busy: dict, wall_ms: float = None):
-    """Summed kernel ms over wall_ms (default: the traced step's own)."""
-    if not busy["kernels"]:
-        return "not measured (no kernel in the trace)"
-    return round(busy["kernel_ms"] / (wall_ms or busy["step_ms"]), 4)
 
 
 LOOP_END = 3  # phase 6's last checkpoint
@@ -900,9 +823,7 @@ def flagship_loop_steady(dev: torch.device, work: Path, train_ms_per_step: float
     output directory, with the warm-up switches on up to step 6 (the
     flagship's are on for 100 steps; most of a run is after them): steps 4
     and 5 are steady warm-up steps, 8 and 9 steady normal steps, step 7 is
-    traced. The device-busy share of a normal step is the traced step's
-    kernel time over the wall time of the untraced normal steps (kernel
-    durations do not depend on the profiler; the host's launches do)."""
+    traced."""
     run_dir = work / "steady"
     argv = ["--config", FLAGSHIP_YAML, "--device", str(dev), f"assets={work / 'assets'}",
             f"progress.output_path={run_dir}", f"train.checkpoint={work / 'run' / 'checkpoints'}",
@@ -921,19 +842,13 @@ def flagship_loop_steady(dev: torch.device, work: Path, train_ms_per_step: float
     ms = dict(zip(range(LOOP_END, STEADY_END), watched.ms(0)))
     warm = [ms[i] for i in range(LOOP_END + 1, STEADY_WARMUP)]
     normal = [ms[i] for i in range(STEADY_TRACED + 1, STEADY_END)]
-    busy = trace_busy(run_dir / "profile" / TRACE_FILE)
     log("loop-steady", steps=n, steptimer_ms=ms, first=LOOP_END, traced=STEADY_TRACED,
         warmup_until=STEADY_WARMUP, steptimer_p50_ms_warmup=round(float(np.median(warm)), 3),
         steptimer_p50_ms_normal=round(float(np.median(normal)), 3),
-        train_ms_per_step=round(train_ms_per_step, 3),
-        device_busy_share_normal=busy_share(busy, float(np.median(normal))),
-        device_busy_share_traced=busy_share(busy), fwd_launches=launches[0],
+        train_ms_per_step=round(train_ms_per_step, 3), fwd_launches=launches[0],
         bwd_launches=launches[1], bwd_with_state=launches[2])
-    log("loop-steady-trace", step=STEADY_TRACED,
-        **{k: round(v, 3) if isinstance(v, float) else v for k, v in busy.items()})
     return launches, dict(p50_ms_warmup=round(float(np.median(warm)), 3),
                           p50_ms_normal=round(float(np.median(normal)), 3),
-                          busy_share_normal=busy_share(busy, float(np.median(normal))),
                           march_ms=trace_march_ms(run_dir / "profile" / TRACE_FILE))
 
 
@@ -1032,20 +947,15 @@ def bf16_train(dev: torch.device, work: Path, steady_fp32: dict):
     ms = dict(zip(range(2, BF16_END), watched.ms(1)))
     warm = [ms[i] for i in range(3, STEADY_WARMUP)]
     normal = [ms[i] for i in range(STEADY_TRACED + 1, BF16_END)]
-    busy = trace_busy(run_dir / "profile" / TRACE_FILE)
     p50_normal = float(np.median(normal))
     log("bf16-train", steps=BF16_END, resumed_at=2, losses=[round(v, 4) for v in losses],
         steptimer_ms=ms, steptimer_p50_ms_warmup=round(float(np.median(warm)), 3),
         steptimer_p50_ms_normal=round(p50_normal, 3),
         fp32_steptimer_p50_ms_warmup=steady_fp32["p50_ms_warmup"],
         fp32_steptimer_p50_ms_normal=steady_fp32["p50_ms_normal"],
-        device_busy_share_normal=busy_share(busy, p50_normal),
-        fp32_device_busy_share_normal=steady_fp32["busy_share_normal"],
         peak_gib=round(peak_gib, 3),
         fwd_launches=launches[0], bwd_launches=launches[1], bwd_with_state=launches[2],
         seconds=round(seconds, 3))
-    log("bf16-trace", step=STEADY_TRACED,
-        **{k: round(v, 3) if isinstance(v, float) else v for k, v in busy.items()})
     return launches
 
 
@@ -1640,18 +1550,14 @@ def capture_train(dev: torch.device, work: Path, csv: Path, img_hw, flagship_ste
               if i not in (0, CAPTURE_FIRST_END, CAPTURE_TRACED)]
     p50 = float(np.median(steady))
     trace = run_dir / "profile" / TRACE_FILE
-    busy = trace_busy(trace)
     log("capture-train", steps=CAPTURE_END, resumed_at=CAPTURE_FIRST_END, traced=CAPTURE_TRACED,
         losses=[round(v, 4) for v in losses], steptimer_ms=ms,
         iteration_s=[round(t, 3) for _, t in its],
         steptimer_p50_ms_steady=round(p50, 3), steady_steps=len(steady),
-        device_busy_share=busy_share(busy, p50), device_busy_share_traced=busy_share(busy),
-        traced_kernel_ms=round(busy["kernel_ms"], 3), march_ms_traced=trace_march_ms(trace),
+        march_ms_traced=trace_march_ms(trace),
         peak_gib=round(peak_gib, 3), fwd_launches=launches[0], bwd_launches=launches[1],
         bwd_with_state=launches[2], seconds=round(seconds, 3),
         flagship_steady=json.dumps(flagship_steady))
-    log("capture-train-trace", step=CAPTURE_TRACED,
-        **{k: round(v, 3) if isinstance(v, float) else v for k, v in busy.items()})
     return launches
 
 
