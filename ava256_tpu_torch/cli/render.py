@@ -24,6 +24,7 @@ from ava256_tpu_torch.cli.common import add_device_arg, restore
 from ava256_tpu_torch.config import load_config
 from ava256_tpu_torch.data.dataset import none_collate
 from ava256_tpu_torch.data.loader import Uploader
+from ava256_tpu_torch.ops import graphs
 from ava256_tpu_torch.ops.raymarch_cuda import resolve_device
 from ava256_tpu_torch.render import decode
 from ava256_tpu_torch.train.loop import build_dataset, to_model_batch
@@ -75,6 +76,7 @@ def main(argv=None):
         logger.info("Rendered frame %d (dataset idx %d)", rendered, idx)
 
     logger.info("Wrote %d frames to %s", rendered, out_dir)
+    logger.info("CUDA graphs by module: %s", graphs.report(state.model))
     return rendered
 
 

@@ -36,6 +36,7 @@ from torch import nn
 from ava256_tpu_torch.models.decoders.geometry import GeometryDecoder
 from ava256_tpu_torch.models.decoders.rgb import RGBDecoder
 from ava256_tpu_torch.ops.geomap import generate_geomap
+from ava256_tpu_torch.ops.graphs import GraphCache
 from ava256_tpu_torch.ops.layers import remat, weak
 from ava256_tpu_torch.ops.math3d import rodrigues
 from ava256_tpu_torch.parallel import all_reduce_max_
@@ -109,6 +110,7 @@ class DecoderAssembler(nn.Module):
         self.register_buffer("vertmean", torch.as_tensor(np.asarray(vertmean),
                                                          dtype=torch.float32), persistent=False)
         self.register_buffer("adaptwarps", torch.zeros(nprims))
+        self.graphs = GraphCache()  # replays the forward under inference (ops/graphs.py)
 
     def forward(self, id_cond: Dict[str, Any], expr_encoding: torch.Tensor,
                 viewpos: torch.Tensor, running_avg_scale: bool = False,
@@ -117,7 +119,18 @@ class DecoderAssembler(nn.Module):
         """id_cond: z_geo/z_tex [N, 4, 4, 16] and NHWC b_geo/b_tex pyramids;
         expr_encoding [N, 4, 4, 16]; viewpos [N, 3] model-relative camera.
         Returns verts [N, V, 3], template [N, K, bs, bs, bs, 4], primpos
-        [N, K, 3], primrot [N, K, 3, 3], primscale [N, K, 3]."""
+        [N, K, 3], primrot [N, K, 3, 3], primscale [N, K, 3]. A CUDA graph
+        replays the call unless it updates ``adaptwarps`` or takes
+        ``gt_geo``: the scale's update and its all-reduce stay eager."""
+        return self.graphs(self, self._forward, id_cond, expr_encoding, viewpos,
+                           running_avg_scale=running_avg_scale, gt_geo=gt_geo,
+                           residuals_weight=residuals_weight,
+                           pure=not running_avg_scale and gt_geo is None)
+
+    def _forward(self, id_cond: Dict[str, Any], expr_encoding: torch.Tensor,
+                 viewpos: torch.Tensor, running_avg_scale: bool = False,
+                 gt_geo: Optional[torch.Tensor] = None,
+                 residuals_weight: float = 1.0) -> Dict[str, torch.Tensor]:
         n = expr_encoding.shape[0]
         K, s, nh = self.nprims, self.stride, self.nh
         c = s // 2

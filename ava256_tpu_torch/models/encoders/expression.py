@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ava256_tpu_torch.ops.geomap import generate_geomap
+from ava256_tpu_torch.ops.graphs import GraphCache
 from ava256_tpu_torch.ops.layers import ConvSeq, nchw_to_nhwc, nhwc_to_nchw, remat
 
 
@@ -57,11 +58,16 @@ class ExpressionEncoder(nn.Module):
             final_activation=True,
             dtype=dtype,
         )
+        self.graphs = GraphCache()  # replays the forward under inference (ops/graphs.py)
 
     def forward(self, verts: torch.Tensor, avgtex: torch.Tensor, neut_verts: torch.Tensor,
                 neut_avgtex: torch.Tensor) -> torch.Tensor:
         """verts/neut_verts [N, V, 3]; avgtex/neut_avgtex [N, M, M, 3] ->
         [N, 4, 4, 64]."""
+        return self.graphs(self, self._forward, verts, avgtex, neut_verts, neut_avgtex)
+
+    def _forward(self, verts: torch.Tensor, avgtex: torch.Tensor, neut_verts: torch.Tensor,
+                 neut_avgtex: torch.Tensor) -> torch.Tensor:
         geo_img = generate_geomap(verts - neut_verts, self.uv_tidx, self.uv_bary)
         # each conv stack is recomputed in the backward pass
         tex = remat(self.tex, nhwc_to_nchw(avgtex - neut_avgtex))

@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from ava256_tpu_torch.ops.geomap import generate_geomap
+from ava256_tpu_torch.ops.graphs import GraphCache
 from ava256_tpu_torch.ops.grid_sample import grid_sample_2d, resize_bilinear
 from ava256_tpu_torch.ops.layers import (
     LEAKY_GAIN, Conv2dWN, leaky_relu, nchw_to_nhwc, nhwc_to_nchw, remat)
@@ -99,6 +100,7 @@ class IdentityEncoder(nn.Module):
         xg, yg = np.meshgrid(xs, xs)
         self.register_buffer("identity_grid", torch.as_tensor(np.stack([xg, yg], axis=-1)[None]),
                              persistent=False)
+        self.graphs = GraphCache()  # replays the forward under inference (ops/graphs.py)
 
     def forward(self, neut_verts: torch.Tensor, neut_avgtex: torch.Tensor
                 ) -> Dict[str, object]:
@@ -106,6 +108,10 @@ class IdentityEncoder(nn.Module):
         [N, 4, 4, 16], "b_geo", "b_tex": NHWC bias pyramids, deepest first}.
         The codes come out in the compute dtype, the pyramids in float32:
         the warp's float32 sampling weights promote them, as in JAX."""
+        return self.graphs(self, self._forward, neut_verts, neut_avgtex)
+
+    def _forward(self, neut_verts: torch.Tensor, neut_avgtex: torch.Tensor
+                 ) -> Dict[str, object]:
         geo_img = generate_geomap(neut_verts, self.uv_tidx, self.uv_bary)
         # the UNets and the warp sampling are recomputed in the backward pass
         z_geo, b_geo = remat(self.geo, nhwc_to_nchw(geo_img))

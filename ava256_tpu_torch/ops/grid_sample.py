@@ -47,7 +47,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ava256_tpu_torch.ops import fixed_point
+from ava256_tpu_torch.ops import fixed_point, graphs
 from ava256_tpu_torch.ops.cuda_lib import CudaLib
 
 GRID_SAMPLE_LIB = CudaLib("grid_sample.cu")
@@ -491,6 +491,8 @@ class _GridSampleKernels:
 
 
 grid_sample_kernels = _GridSampleKernels(GRID_SAMPLE_LIB)
+graphs.count_launches(grid_sample_kernels, "launches", "bwd_launches", "owner_launches",
+                      "scatter_launches", "bwd_kernels")
 
 
 def _route(x: torch.Tensor) -> bool:

@@ -45,7 +45,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ava256_tpu_torch.ops import fixed_point
+from ava256_tpu_torch.ops import fixed_point, graphs
 from ava256_tpu_torch.ops.cuda_lib import CudaLib
 from ava256_tpu_torch.train.profiling import annotate
 
@@ -883,6 +883,8 @@ class _MarchBwdKernel:
 
 march_tiles_kernel = _MarchKernel(MARCH_FWD_LIB)
 march_tiles_bwd_kernel = _MarchBwdKernel(MARCH_BWD_LIB, march_tiles_kernel)
+graphs.count_launches(march_tiles_kernel, "launches")
+graphs.count_launches(march_tiles_bwd_kernel, "launches", "launches_with_state")
 
 
 def _route(t_o: torch.Tensor, kernel, plain):

@@ -244,7 +244,7 @@ from ava256_tpu_torch.data.synthetic import (
 from ava256_tpu_torch.factory import get_autoencoder
 from ava256_tpu_torch.flagship import FLAGSHIP  # configs/config-synthetic-flagship.yaml
 from ava256_tpu_torch.geometry.ply import parse_ply_vertices
-from ava256_tpu_torch.ops import fixed_point
+from ava256_tpu_torch.ops import fixed_point, graphs
 from ava256_tpu_torch.ops import grid_sample as gs
 from ava256_tpu_torch.ops import raymarch_cuda as rc
 from ava256_tpu_torch.ops.cuda_lib import build_all
@@ -499,6 +499,7 @@ def flagship_render(dev: torch.device):
                 launches.append(rc.march_tiles_kernel.launches)
     main_launches = rc.march_tiles_kernel.launches  # the main path ends here
     GRID_LAUNCHES["flagship_render"] = grid_launches()
+    graph_counts = graphs.report(model)  # captures and replays of the main path
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
 
     if any(b <= a for a, b in zip([0] + launches, launches)):
@@ -528,7 +529,8 @@ def flagship_render(dev: torch.device):
     log("render", forwards=len(launches), launches=main_launches,
         warmup_ms=round(warm_ms, 3), ms_per_forward=round(float(np.mean(per_forward)), 3),
         ms_each=[round(x, 3) for x in per_forward], peak_gib=round(peak_gib, 3),
-        alpha_coverage=round(coverage, 4), self_vs_cross_mean_abs=round(self_cross, 3))
+        alpha_coverage=round(coverage, 4), self_vs_cross_mean_abs=round(self_cross, 3),
+        graphs=graph_counts)
     return model, ds, batches, out["march_inputs"], main_launches, float(np.mean(per_forward))
 
 

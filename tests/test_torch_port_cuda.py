@@ -3,7 +3,8 @@
 #
 # This source code is licensed under the license found in the
 # LICENSE file in the root directory of this source tree.
-"""The CUDA raymarch kernels against their plain PyTorch versions, on the card.
+"""The CUDA raymarch kernels against their plain PyTorch versions, on the card,
+and the decode's modules replayed as CUDA graphs against the eager decode.
 
 Imports neither JAX nor the JAX package, so it runs on a machine with only
 PyTorch and the CUDA toolkit:
@@ -24,13 +25,19 @@ trilinear corner outside the box reads zero in the kernels whatever lies in
 the cell its index is clamped to, inf included.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from ava256_tpu_torch.data.synthetic import raymarch_scene
+from ava256_tpu_torch.ops import graphs
 from ava256_tpu_torch.ops import raymarch_cuda as rc
 from ava256_tpu_torch.ops.math3d import rodrigues
+from ava256_tpu_torch.render import BATCH_MODEL_KEYS, decode
+
+from _graph_cases import FRAMES_3, GRAPHED, tensors, warm_scene
 
 pytestmark = pytest.mark.cuda
 BWD_TOL = 2e-5
@@ -649,3 +656,116 @@ def test_grid_sample_nonfinite_gout_reads_nan(card):
     gimg, _ = gs.grid_sample_kernels.backward(img, grid, gout)
     assert bool(torch.isnan(gimg).all())
     fixed_point.check(card)
+
+
+# --- the decode's three modules replayed as CUDA graphs (ops/graphs.py) ------
+
+# a small model: the march kernels' buffer a multiple of their warp
+SMALL = dict(batch=1, height=32, width=32, nprims=256, texsize=64, primsize=16,
+             raymarch_options={"tile": 8, "max_hit": 16, "nbuf": 64, "dt": 16.0})
+
+
+def _counts(cache):
+    return dataclasses.astuple(cache.counts)
+
+
+def _graph_scene(card, **kw):
+    """``warm_scene`` on the card, each graphed module with a new cache (its
+    counts start at 0)."""
+    scene = warm_scene(card, **kw)
+    for name in GRAPHED:
+        getattr(scene[0], name).graphs = graphs.GraphCache()
+    return scene
+
+
+def _model_args(mb, tex, verts):
+    return dict(target_neut_avgtex=tex, target_neut_verts=verts, idindex=mb["idindex"],
+                camindex=mb["camindex"], deterministic=True,
+                **{k: mb[k] for k in BATCH_MODEL_KEYS})
+
+
+def _eager(model, mb, tex, verts):
+    """The decode without graphs: grad mode off, but not inference mode."""
+    with torch.no_grad():
+        return model(**_model_args(mb, tex, verts))["irgbrec"]
+
+
+def test_graphed_decode_is_eager_bitwise(card):
+    model, mb, tex, verts = _graph_scene(card, **SMALL)
+    targets = ((mb["neut_avgtex"], mb["neut_verts"]), (tex, verts))
+    want = [_eager(model, mb, *t) for t in targets]
+    got = [decode(model, mb, *t) for _ in range(3) for t in targets]
+    torch.cuda.synchronize()
+    for name in GRAPHED:
+        assert _counts(getattr(model, name).graphs)[:2] == FRAMES_3[name], name
+    assert float(want[0].abs().sum()) > 0
+    for i, image in enumerate(got):
+        assert torch.equal(image, want[i % 2]), i
+
+
+def test_graphed_decode_outputs_survive_the_next_decode(card):
+    model, mb, tex, verts = _graph_scene(card, **SMALL)
+    for _ in range(2):
+        decode(model, mb, mb["neut_avgtex"], mb["neut_verts"])
+    with torch.inference_mode():
+        first = model(**_model_args(mb, mb["neut_avgtex"], mb["neut_verts"]),
+                      output_set=frozenset({"idcond"}))
+        kept = {k: [t.clone() for t in tensors(first[k])]
+                for k in ("irgbrec", "verts", "id_cond")}
+        model(**_model_args(mb, tex, verts), output_set=frozenset({"idcond"}))
+        model(**_model_args(mb, tex, verts), output_set=frozenset({"idcond"}))
+    torch.cuda.synchronize()
+    assert {name: _counts(getattr(model, name).graphs)[:2] for name in GRAPHED} == {
+        "identity_encoder": (2, 3), "expression_encoder": (1, 4), "decoder_assembler": (2, 3)}
+    for k, saved in kept.items():
+        assert all(torch.equal(a, b) for a, b in zip(tensors(first[k]), saved)), k
+
+
+def test_graphed_decode_reads_weights_loaded_after_capture(card):
+    model, mb, tex, verts = _graph_scene(card, **SMALL)
+    for _ in range(2):
+        decode(model, mb, tex, verts)
+    before = decode(model, mb, tex, verts)
+    state = {k: v * 1.01 if v.is_floating_point() else v for k, v in model.state_dict().items()}
+    model.load_state_dict(state)
+    got = decode(model, mb, tex, verts)
+    want = _eager(model, mb, tex, verts)
+    for name in GRAPHED:
+        assert _counts(getattr(model, name).graphs)[:2] == (1, 3), name
+    assert torch.equal(got, want)
+    assert not torch.equal(got, before)
+
+
+def test_graphed_decode_captures_a_new_input_shape_anew(card):
+    model, mb, tex, verts = _graph_scene(card, **dict(SMALL, batch=2))
+    one = {k: v[:1] if torch.is_tensor(v) else v for k, v in mb.items()}
+    for batch in (mb, one):
+        t = (batch["neut_avgtex"], batch["neut_verts"])
+        got = [decode(model, batch, *t) for _ in range(3)]
+        want = _eager(model, batch, *t)
+        assert all(torch.equal(g, want) for g in got)
+    for name in GRAPHED:
+        assert _counts(getattr(model, name).graphs) == (2, 4, 4, 0), name
+
+
+def test_graphed_decode_counts_the_launches_it_replays(card):
+    """The grid-sample kernels' launch count: a replay adds what an eager
+    decode launches; a capture adds its warm-up's launches, and not those it
+    recorded. (The eager decode, outside inference mode, is each cache's
+    first eager call.)"""
+    from ava256_tpu_torch.ops import grid_sample as gs
+    model, mb, _, _ = _graph_scene(card, **SMALL)
+    t = (mb["neut_avgtex"], mb["neut_verts"])
+
+    def launched(fn):
+        n = gs.grid_sample_kernels.launches
+        fn()
+        torch.cuda.synchronize()
+        return gs.grid_sample_kernels.launches - n
+
+    eager = launched(lambda: _eager(model, mb, *t))
+    got = [launched(lambda: decode(model, mb, *t)) for _ in range(4)]
+    for name in GRAPHED:
+        assert _counts(getattr(model, name).graphs) == (1, 3, 2, 0), name
+    assert eager > 0
+    assert got == [eager, 2 * eager, eager, eager]
