@@ -40,14 +40,15 @@ Port of ``ava256_tpu.ops.raymarch_pallas``:
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from ava256_tpu_torch.ops import fixed_point, graphs
 from ava256_tpu_torch.ops.cuda_lib import CudaLib
-from ava256_tpu_torch.train.profiling import annotate
+from ava256_tpu_torch.train.profiling import annotate, recording
 
 MARCH_FWD_LIB = CudaLib("mvp_march_fwd.cu")
 MARCH_BWD_LIB = CudaLib("mvp_march_bwd.cu")
@@ -137,10 +138,52 @@ def tile_view(x: torch.Tensor, tile: int) -> torch.Tensor:
     return x.reshape(-1, ch, tile * tile).contiguous()
 
 
+@dataclasses.dataclass
+class CullCounts:
+    """Sums over the two-stage culls made while a profiler records (each a
+    Python int, or a 0-d int64 tensor on the culls' device until read):
+    tiles culled, tiles whose ``cull_max_groups`` group slots were all
+    taken (so any further group that reached the tile was cut), tiles whose
+    ``max_hit`` candidate slots were all valid, and valid candidates."""
+
+    tiles: Any = 0
+    groups_full: Any = 0
+    candidates_full: Any = 0
+    candidates: Any = 0
+
+
+CULL_COUNTS = CullCounts()
+
+
+def take_cull_counts() -> Dict[str, int]:
+    """``CULL_COUNTS`` as ints (one host sync), then back to zero."""
+    out = {k: int(v) for k, v in dataclasses.asdict(CULL_COUNTS).items()}
+    for k in out:
+        setattr(CULL_COUNTS, k, 0)
+    return out
+
+
+def _count_cull(gvalid: torch.Tensor, cand_valid: torch.Tensor) -> None:
+    """Add one two-stage cull to ``CULL_COUNTS`` on the device, with no sync."""
+    c = CULL_COUNTS
+    c.tiles = c.tiles + cand_valid.shape[0]
+    c.groups_full = c.groups_full + torch.all(gvalid, dim=1).sum()
+    c.candidates_full = c.candidates_full + torch.all(cand_valid, dim=1).sum()
+    c.candidates = c.candidates + cand_valid.sum()
+
+
 def tile_and_cull(raypos, raydir, tminmax, primpos, primscale, prim_mask, tile, max_hit, dt,
                   cull_group_size=256, cull_max_groups=8, two_stage=None):
     """Returns (t_o, t_d, t_mm [NT, C, T2], cand_gid [NT, MH] int64 into the
-    flat N*K table, cand_valid [NT, MH], cand_tstart [NT, MH], meta)."""
+    flat N*K table, cand_valid [NT, MH], cand_tstart [NT, MH], meta).
+
+    The two-stage branch runs in two spans (``annotate``): from the Morton
+    order to each tile's earliest ``cull_max_groups`` groups,
+    ``ava:raymarch.cull.groups``; from the gather of the kept groups'
+    members to the earliest ``max_hit``, ``ava:raymarch.cull.members``.
+    While a profiler records it also adds to ``CULL_COUNTS`` (read and reset
+    by ``take_cull_counts``); outside one it counts nothing. The dense
+    branch opens no span of its own and counts nothing."""
     n, h, w = raypos.shape[0], raypos.shape[1], raypos.shape[2]
     K = primpos.shape[1]
     hp, wp = _ceil_to(h, tile), _ceil_to(w, tile)
@@ -173,43 +216,47 @@ def tile_and_cull(raypos, raydir, tminmax, primpos, primscale, prim_mask, tile, 
         # Morton-sort the primitives, test each tile against the bounding
         # spheres of groups of g consecutive ones, keep the earliest
         # cull_max_groups groups and test their members exactly.
-        g = max(1, min(cull_group_size, K))
-        G = -(-K // g)
-        Kp = G * g
-        order_s = _morton_order(primpos, live_nk)
-        pos_s = torch.gather(primpos, 1, order_s[..., None].expand(-1, -1, 3))
-        rad_s = torch.gather(radii, 1, order_s)
-        live_s = torch.gather(live_nk, 1, order_s)
-        if Kp > K:
-            pos_s = torch.nn.functional.pad(pos_s, (0, 0, 0, Kp - K))
-            rad_s = torch.nn.functional.pad(rad_s, (0, Kp - K))
-            live_s = torch.nn.functional.pad(live_s, (0, Kp - K))
-            order_s = torch.nn.functional.pad(order_s, (0, Kp - K))
-        mem = pos_s.reshape(n, G, g, 3)
-        mem_rad = rad_s.reshape(n, G, g)
-        mem_live = live_s.reshape(n, G, g)
-        lo = torch.amin(torch.where(mem_live[..., None], mem, big), dim=2)
-        hi = torch.amax(torch.where(mem_live[..., None], mem, -big), dim=2)
-        any_live = torch.any(mem_live, dim=2)
-        cg = 0.5 * (lo + hi)
-        rg = torch.amax(torch.where(mem_live, _norm(mem - cg[:, :, None]) + mem_rad,
-                                    torch.zeros_like(mem_rad)), dim=2)
-        ghit, gstart = _cone_test(cg[tile_b], rg[tile_b], any_live[tile_b], *cone)
-        gkey = torch.where(ghit, gstart, math.inf)
-        M = min(cull_max_groups, G)
-        gkey_top, gorder = _smallest(gkey, M)
-        gvalid = torch.isfinite(gkey_top)
-        sel = tile_b[:, None] * G + gorder  # [NT, M] rows of the [N*G] group table
-        centers = mem.reshape(n * G, g, 3)[sel].reshape(ntiles, M * g, 3)
-        rads = mem_rad.reshape(n * G, g)[sel].reshape(ntiles, M * g)
-        live_c = mem_live.reshape(n * G, g)[sel].reshape(ntiles, M * g) & torch.repeat_interleave(
-            gvalid, g, dim=1)
-        cand_local = order_s.reshape(n * G, g)[sel].reshape(ntiles, M * g)
-        hit, t_start = _cone_test(centers, rads, live_c, *cone)
-        key = torch.where(hit, t_start, math.inf)
-        cand_tstart, order = _smallest(key, min(max_hit, key.shape[1]))
-        cand_valid = torch.isfinite(cand_tstart)
-        gids = tile_b[:, None] * K + torch.gather(cand_local, 1, order)
+        with annotate("ava:raymarch.cull.groups"):
+            g = max(1, min(cull_group_size, K))
+            G = -(-K // g)
+            Kp = G * g
+            order_s = _morton_order(primpos, live_nk)
+            pos_s = torch.gather(primpos, 1, order_s[..., None].expand(-1, -1, 3))
+            rad_s = torch.gather(radii, 1, order_s)
+            live_s = torch.gather(live_nk, 1, order_s)
+            if Kp > K:
+                pos_s = torch.nn.functional.pad(pos_s, (0, 0, 0, Kp - K))
+                rad_s = torch.nn.functional.pad(rad_s, (0, Kp - K))
+                live_s = torch.nn.functional.pad(live_s, (0, Kp - K))
+                order_s = torch.nn.functional.pad(order_s, (0, Kp - K))
+            mem = pos_s.reshape(n, G, g, 3)
+            mem_rad = rad_s.reshape(n, G, g)
+            mem_live = live_s.reshape(n, G, g)
+            lo = torch.amin(torch.where(mem_live[..., None], mem, big), dim=2)
+            hi = torch.amax(torch.where(mem_live[..., None], mem, -big), dim=2)
+            any_live = torch.any(mem_live, dim=2)
+            cg = 0.5 * (lo + hi)
+            rg = torch.amax(torch.where(mem_live, _norm(mem - cg[:, :, None]) + mem_rad,
+                                        torch.zeros_like(mem_rad)), dim=2)
+            ghit, gstart = _cone_test(cg[tile_b], rg[tile_b], any_live[tile_b], *cone)
+            gkey = torch.where(ghit, gstart, math.inf)
+            M = min(cull_max_groups, G)
+            gkey_top, gorder = _smallest(gkey, M)
+            gvalid = torch.isfinite(gkey_top)
+        with annotate("ava:raymarch.cull.members"):
+            sel = tile_b[:, None] * G + gorder  # [NT, M] rows of the [N*G] group table
+            centers = mem.reshape(n * G, g, 3)[sel].reshape(ntiles, M * g, 3)
+            rads = mem_rad.reshape(n * G, g)[sel].reshape(ntiles, M * g)
+            live_c = mem_live.reshape(n * G, g)[sel].reshape(ntiles, M * g) & \
+                torch.repeat_interleave(gvalid, g, dim=1)
+            cand_local = order_s.reshape(n * G, g)[sel].reshape(ntiles, M * g)
+            hit, t_start = _cone_test(centers, rads, live_c, *cone)
+            key = torch.where(hit, t_start, math.inf)
+            cand_tstart, order = _smallest(key, min(max_hit, key.shape[1]))
+            cand_valid = torch.isfinite(cand_tstart)
+            gids = tile_b[:, None] * K + torch.gather(cand_local, 1, order)
+        if recording():
+            _count_cull(gvalid, cand_valid)
     else:
         hit, t_start = _cone_test(primpos[tile_b], radii[tile_b], live_nk[tile_b], *cone)
         key = torch.where(hit, t_start, math.inf)

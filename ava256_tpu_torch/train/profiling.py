@@ -74,6 +74,12 @@ def trace(logdir: Optional[str]) -> Iterator[None]:
     prof.export_chrome_trace(str(Path(logdir) / TRACE_FILE))
 
 
+def recording() -> bool:
+    """Whether a profiler records: the flag ``annotate`` reads, for counts
+    that are taken only while a trace is being made."""
+    return autograd_profiler._is_profiler_enabled
+
+
 class annotate:
     """A named region in the timeline of a running ``torch.profiler``: a
     ``record_function`` opened only while a profiler records, so that

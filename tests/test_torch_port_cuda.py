@@ -769,3 +769,26 @@ def test_graphed_decode_counts_the_launches_it_replays(card):
         assert _counts(getattr(model, name).graphs) == (1, 3, 2, 0), name
     assert eager > 0
     assert got == [eager, 2 * eager, eager, eager]
+
+
+# the 262k configuration's model at its widths (configs/config-synthetic-262k.yaml):
+# 262,144 primitives of 2^3 on the 1024^2 slab, 512x334 rays, the two-stage cull
+PRIMS_262K = dict(batch=1, height=512, width=334, nprims=262144, texsize=1024, primsize=2,
+                  raymarch_options={"tile": 16, "max_hit": 64})
+
+
+def test_graphed_decode_is_eager_bitwise_at_262k(card):
+    """16 decodes (8 frames, self- then cross-driven) of the 262k model: each
+    graphed decode equals the eager one bit for bit, and the three modules
+    replay from their graphs with no failed capture."""
+    model, mb, tex, verts = _graph_scene(card, **PRIMS_262K)
+    targets = ((mb["neut_avgtex"], mb["neut_verts"]), (tex, verts))
+    want = [_eager(model, mb, *t) for t in targets]
+    got = [decode(model, mb, *t) for _ in range(8) for t in targets]
+    torch.cuda.synchronize()
+    assert {name: _counts(getattr(model, name).graphs)[:2] for name in GRAPHED} == {
+        "identity_encoder": (2, 14), "expression_encoder": (1, 15), "decoder_assembler": (2, 14)}
+    assert all(_counts(getattr(model, name).graphs)[3] == 0 for name in GRAPHED)
+    assert float(want[0].abs().sum()) > 0
+    for i, image in enumerate(got):
+        assert torch.equal(image, want[i % 2]), i

@@ -7,7 +7,8 @@
 against the JAX package on the CPU.
 
 - the culler must pick the same candidates as ``_tile_and_cull``, dense and
-  two-stage;
+  two-stage, and on 65,536 boxes (the two-stage branch the configurations
+  take) the same as the benchmark's plain reference (``benchmark/reference``);
 - the march (on CPU tensors: the kernel's plain PyTorch version) must match
   ``mvp_raymarch_pallas`` in interpret mode to rtol/atol 1e-4, the JAX
   suite's image tolerance;
@@ -24,6 +25,7 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from ava256_tpu_torch.data.synthetic import raymarch_scene
 from ava256_tpu_torch.ops import raymarch_cuda as rc
 from ava256_tpu_torch.ops.raymarch_ref import mvp_raymarch_reference
 
@@ -31,6 +33,7 @@ from tests import _torch_port_threads  # noqa: F401
 from ava256_tpu.ops.raymarch_pallas import _tile_and_cull, mvp_raymarch_pallas
 from ava256_tpu.ops.raymarch_ref import mvp_raymarch_reference as jax_reference
 
+from benchmark.reference import march as bench_march
 from tests.test_raymarch import make_scene
 from tests.test_raymarch_pallas import _adversarial_scene
 
@@ -83,6 +86,36 @@ def test_culler_matches_jax(two_stage, max_hit, groups):
     np.testing.assert_array_equal(np.asarray(j[3]), t[3].numpy())
     np.testing.assert_allclose(np.where(valid_j, np.asarray(j[5]), 0.0),
                                np.where(valid_t, t[5].numpy(), 0.0), rtol=1e-6, atol=1e-6)
+
+
+def test_two_stage_cull_matches_the_benchmark_reference():
+    """65,536 boxes, so both take the two-stage branch by default: a tile's
+    candidates (ids, depth order, validity) equal the reference's, with the
+    group cap and the candidate cap both cutting."""
+    s = raymarch_scene(n=2, h=16, w=16, k3=2, bs=2, seed=18)
+    rng = np.random.RandomState(18)
+    K = 65536
+    primpos = torch.from_numpy((rng.rand(2, K, 3) * 0.6 - 0.3).astype(np.float32))
+    primscale = torch.from_numpy(rng.uniform(20.0, 60.0, (2, K, 3)).astype(np.float32))
+    raypos, raydir, tminmax = _torch(s, "raypos", "raydir", "tminmax")
+    spy = []
+    smallest = rc._smallest
+    rc_args = (raypos, raydir, tminmax, primpos, primscale, torch.ones(2, K))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(rc, "_smallest", lambda key, k: spy.append(smallest(key, k)) or spy[-1])
+        t_o, t_d, t_mm, gid, valid, _, meta = rc.tile_and_cull(*rc_args, tile=8, max_hit=64,
+                                                               dt=s["stepsize"])
+    groups_kept, cands = spy  # two-stage: the earliest groups, then the members
+    assert groups_kept[1].shape == (8, 8) and cands[1].shape == (8, 64)
+    tiles = bench_march._tiles
+    assert torch.equal(t_o, tiles(raypos, 8)) and torch.equal(t_mm, tiles(tminmax, 8))
+    tile_b = torch.arange(meta["ntiles"]) // (meta["nty"] * meta["ntx"])
+    ref_gid, ref_valid = bench_march.cull(t_o, t_d, t_mm, primpos, primscale, tile_b, 64,
+                                          s["stepsize"], 256, 8)
+    np.testing.assert_array_equal(valid.numpy(), ref_valid.numpy())
+    np.testing.assert_array_equal(gid.numpy(), ref_gid.numpy())
+    assert bool(torch.isfinite(groups_kept[0]).all(dim=1).any())  # a tile's 8 slots full
+    assert bool(valid.all(dim=1).any()) and int(valid.sum()) > 64
 
 
 @pytest.mark.parametrize("case", ["plain", "warp", "bs2", "bs4_warp", "prim_mask"])

@@ -12,8 +12,14 @@ on the CPU with a tiny model and the kernels' plain versions:
   ``ava:raymarch`` with one ``ava:raymarch.cull`` inside it;
 - with no profiler recording, no span enters ``record_function`` (patched
   to raise here), and the decode gives the same image;
-- spans nest, and ``train_step``'s span goes through the same helper.
+- spans nest, and ``train_step``'s span goes through the same helper;
+- a two-stage cull opens ``ava:raymarch.cull.groups`` then
+  ``ava:raymarch.cull.members`` inside ``ava:raymarch.cull``, a dense one
+  neither; under a profiler a two-stage cull adds to ``CULL_COUNTS`` what
+  its own results count, and without one it counts nothing.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -24,6 +30,9 @@ from torch.profiler import ProfilerActivity, profile
 from ava256_tpu_torch import bench
 from ava256_tpu_torch.data.dataset import none_collate
 from ava256_tpu_torch.data.loader import Uploader
+from ava256_tpu_torch.data.synthetic import raymarch_scene
+from ava256_tpu_torch.ops import raymarch_cuda as rc
+from ava256_tpu_torch.ops.math3d import rodrigues
 from ava256_tpu_torch.render import BATCH_MODEL_KEYS, decode
 from ava256_tpu_torch.train.loop import to_model_batch
 from ava256_tpu_torch.train.profiling import annotate
@@ -33,6 +42,7 @@ from tests import _torch_port_threads  # noqa: F401
 TINY = dict(batch=1, height=8, width=8, nprims=256, texsize=64, primsize=16,
             raymarch_options={"tile": 8, "max_hit": 4, "nbuf": 16, "dt": 16.0})
 FRAME_SPANS = ("ava:collate", "ava:upload", "ava:decode", "ava:raymarch", "ava:raymarch.cull")
+CULL_STAGES = ("ava:raymarch.cull.groups", "ava:raymarch.cull.members")
 
 
 @pytest.fixture(scope="module")
@@ -67,7 +77,7 @@ def _spans(prof, names):
 def test_a_frame_records_its_spans(scene):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         frame(scene)
-    found = _spans(prof, FRAME_SPANS)
+    found = _spans(prof, FRAME_SPANS + CULL_STAGES)  # a dense cull: no stage span
     assert [e.name for e in found] == [
         "ava:collate", "ava:upload"] + ["ava:decode", "ava:raymarch", "ava:raymarch.cull"] * 2
     for decode_span, march, cull in (found[2:5], found[5:8]):
@@ -110,3 +120,74 @@ def test_spans_nest_and_close():
     assert failed.time_range.end <= outer.time_range.end
     with annotate("ava:decode"):  # after the profiler: nothing recorded, nothing raised
         pass
+
+
+def _march_scene():
+    """A small scene of 64 boxes culled in two stages: groups of 8, of which
+    each tile keeps its earliest 3 (most tiles' slots are full, not all),
+    and 12 candidates."""
+    s = raymarch_scene(n=2, h=17, w=17, k3=4, bs=2, seed=5)
+    t = {k: torch.from_numpy(np.array(v)) for k, v in s.items() if isinstance(v, np.ndarray)}
+    args = (t["raypos"], t["raydir"], s["stepsize"], t["tminmax"], t["primpos"],
+            rodrigues(t["primrvec"]), t["primscale"] * 10.0, t["template"])
+    kw = dict(tile=8, max_hit=12, nbuf=16, cull_group_size=8, cull_max_groups=3,
+              device="cpu")
+    return args, kw
+
+
+def test_the_two_stage_cull_opens_its_two_spans_inside_the_cull():
+    args, kw = _march_scene()
+    names = ("ava:raymarch", "ava:raymarch.cull") + CULL_STAGES
+    for two_stage, want in ((True, names), (False, names[:2])):
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            rc.mvp_raymarch_cuda(*args, two_stage_cull=two_stage, **kw)
+        found = _spans(prof, names)
+        assert [e.name for e in found] == list(want), two_stage
+        for outer, inner in zip(found, found[1:3]):
+            assert outer.time_range.start <= inner.time_range.start
+            assert inner.time_range.end <= outer.time_range.end
+        if two_stage:
+            groups, members = found[2:]
+            assert groups.time_range.end <= members.time_range.start
+            assert members.time_range.end <= found[1].time_range.end
+    rc.take_cull_counts()
+
+
+def test_the_cull_counters_count_what_the_cull_returns(monkeypatch):
+    args, kw = _march_scene()
+    raypos, raydir, dt, tminmax, primpos, _, primscale, _ = args
+    rc.take_cull_counts()
+    kept = []
+    smallest = rc._smallest
+    monkeypatch.setattr(rc, "_smallest", lambda key, k: kept.append(smallest(key, k)) or kept[-1])
+    want = dict.fromkeys(("tiles", "groups_full", "candidates_full", "candidates"), 0)
+    with profile(activities=[ProfilerActivity.CPU]):
+        for max_hit in (12, 40):
+            kept.clear()
+            out = rc.tile_and_cull(raypos, raydir, tminmax, primpos, primscale,
+                                   torch.ones(primpos.shape[:2]), kw["tile"], max_hit, dt,
+                                   cull_group_size=8, cull_max_groups=3, two_stage=True)
+            valid, groups = out[4], torch.isfinite(kept[0][0])
+            want["tiles"] += valid.shape[0]
+            want["groups_full"] += int(groups.all(dim=1).sum())
+            want["candidates_full"] += int(valid.all(dim=1).sum())
+            want["candidates"] += int(valid.sum())
+    got = rc.take_cull_counts()
+    assert got == want
+    assert 0 < want["groups_full"] < want["tiles"] and 0 < want["candidates_full"] < want["tiles"]
+    assert rc.take_cull_counts() == dict.fromkeys(want, 0)
+
+
+def test_no_profiler_no_cull_count_and_no_record_function(monkeypatch):
+    args, kw = _march_scene()
+    rc.take_cull_counts()
+    image = rc.mvp_raymarch_cuda(*args, two_stage_cull=True, **kw)
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered with no profiler")
+
+    monkeypatch.setattr(autograd_profiler, "record_function", refuse)
+    again = rc.mvp_raymarch_cuda(*args, two_stage_cull=True, **kw)
+    np.testing.assert_array_equal(again.numpy(), image.numpy())
+    assert float(image[..., 3].sum()) > 0
+    assert dataclasses.astuple(rc.CULL_COUNTS) == (0, 0, 0, 0)
